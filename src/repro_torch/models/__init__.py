@@ -1,0 +1,5 @@
+from repro_torch.models.model import (forward, forward_hidden, init,
+                                      init_caches, init_paged_caches, logits)
+
+__all__ = ["forward", "forward_hidden", "init", "init_caches",
+           "init_paged_caches", "logits"]
