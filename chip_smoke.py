@@ -37,15 +37,39 @@ Phases, each printing one JSON line (every phase fails the run on error):
      share estimated from the two windows;
   5. parity: reduced llama (2 layers, f32) on the card against the same
      engine on the CPU, greedy: identical tokens, prefill logits within
-     1e-3.
+     1e-3;
+  6. train: one periodic-async GRPO run through the port's build_pipeline:
+     full-width llama3.2-3b cut to 12 layers, f32 parameters from --seed,
+     mode async, one paged instance with 8 slots, N 4 prompts x G 8,
+     prompts up to 128 tokens, responses up to 64, SPA packing, captured
+     logprobs, a bf16 wire with overlap, 3 iterations. Checks staleness 0
+     and trained tokens on every iteration, version 3, the pool's leaves
+     bitwise equal to the bf16-rounded policy after every flip (and the
+     last, staged version), and every kernel's launch count against the
+     formula the run implies (printed). Prints each iteration's wall,
+     infer and train time, TPSPD, sync gap, and the peak device memory;
+  7. train parity: reduced llama (2 layers, f32), one captured grad step
+     and one Adam update on the same SPA-packed micro-batch with seeded
+     non-constant advantages, on the card (kernels) against the CPU (plain
+     versions): gradients and updated parameters within 2e-4 of each
+     leaf's largest entry.
 
-Then one line {"kernels": [...]} with both kernels at the serving shapes,
-and last {"ok": true, "device": {...}}. Without CUDA, or outside a
-checkout, it exits non-zero and prints no result.
+Phase 2 also holds the SPA backward kernel against autograd of the plain
+version (full-width heads; a 1024-token prompt, an SPA-packed row, a
+windowed prompt and the training row's shape; f32 and bf16; two launches
+bitwise equal) and the transfer_cast kernel against x.to(torch.bfloat16),
+bitwise, on every leaf of the training tree, a misaligned ragged length
+and special values (ties, denormals, +-Inf, NaN).
+
+Then one line {"kernels": [...]} with the four kernels at the training
+run's shapes and launch counts, and last {"ok": true, "device": {...}}.
+Without CUDA, or outside a checkout, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -62,7 +86,14 @@ PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
 # summation-order noise; f32 by the noise alone.
 TOL = {"bfloat16": {"rtol": 2.0 ** -7, "atol": 1e-5},
        "float32": {"rtol": 2e-5, "atol": 2e-5}}
+# The backward's bars: rtol of each element plus an atol relative to the
+# tensor's largest entry (dk and dv sum over every query that sees a key,
+# so summation-order noise scales with the tensor, not the element).
+GRAD_TOL = {"bfloat16": (2.0 ** -7, 1e-5), "float32": (2e-5, 2e-5)}
 FLUSH_BYTES = 64 << 20                     # > the H100's 50 MB L2
+TRAIN_LAYERS = 12      # 36 bytes per f32 parameter at an update: 28 layers
+# (3.21 B parameters, ~116 GB) do not fit one 80 GB card, 12 (1.60 B) do
+TRAIN_PROMPT, TRAIN_GROUP, TRAIN_RESP = 128, 8, 64
 
 
 def fail(msg: str) -> None:
@@ -129,12 +160,10 @@ def max_err(torch, got, want, tol: dict):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------
 
-def spa_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
-             resp_len=0, window=None):
-    import torch.nn.functional as F
-    from repro_torch.kernels.spa_attention import (allow_mask,
-                                                   chunked_attention,
-                                                   spa_attention)
+def spa_inputs(torch, dev, gen, dtype, prompt, responses, resp_len):
+    """Full-width heads (H 24, Hkv 8, D 128) over one row: a causal prompt
+    followed by ``responses`` SPA segments of ``resp_len`` tokens, each
+    restarting at position ``prompt``."""
     H, Hkv, D = 24, 8, 128
     S = prompt + responses * resp_len
     pos = torch.arange(S, dtype=torch.int32, device=dev)
@@ -149,7 +178,18 @@ def spa_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
     q = torch.randn(1, S, H, D, generator=gen, device=dev).to(dt)
     k = torch.randn(1, S, Hkv, D, generator=gen, device=dev).to(dt)
     v = torch.randn(1, S, Hkv, D, generator=gen, device=dev).to(dt)
-    args = (q, k, v, pos, pos, seg, seg)
+    return (q, k, v, pos, pos, seg, seg), (S, H, Hkv, D)
+
+
+def spa_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
+             resp_len=0, window=None):
+    import torch.nn.functional as F
+    from repro_torch.kernels.spa_attention import (allow_mask,
+                                                   chunked_attention,
+                                                   spa_attention)
+    args, (S, H, Hkv, D) = spa_inputs(torch, dev, gen, dtype, prompt,
+                                      responses, resp_len)
+    q, k, v, pos, _, seg, _ = args
     got = spa_attention(*args, window=window)
     want = chunked_attention(*f32(args), window=window)
     err, ok = max_err(torch, got, want, TOL[dtype])
@@ -175,6 +215,127 @@ def spa_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
         "library_ms": timer.ms(library, 5),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+def spa_bwd_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
+                 resp_len=0, window=None):
+    """The backward kernel against autograd of the plain version run in
+    f32 on the same inputs, with the forward's f32 output and log-sum-exp
+    from the forward kernel; two launches must agree bitwise."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.spa_attention import (_forward_kernel,
+                                                   allow_mask,
+                                                   chunked_attention,
+                                                   spa_attention_bwd,
+                                                   spa_attention_bwd_plain)
+    args, (S, H, Hkv, D) = spa_inputs(torch, dev, gen, dtype, prompt,
+                                      responses, resp_len)
+    q, k, v, pos, _, seg, _ = args
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    scale = D ** -0.5
+    _, o32, lse = _forward_kernel(*args, scale, window, stats=True)
+    got = spa_attention_bwd(*args, o32, lse, dout, window=window)
+    again = spa_attention_bwd(*args, o32, lse, dout, window=window)
+    torch.cuda.synchronize()
+    deterministic = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    want = spa_attention_bwd_plain(*f32(args), dout.float(), window=window)
+    rtol, atol_rel = GRAD_TOL[dtype]
+    ok, errs = deterministic, []
+    for g, w in zip(got, want):
+        g = g.float()
+        if not bool(torch.isfinite(g).all()):
+            fail("backward kernel output is not finite")
+        err = (g - w).abs()
+        ok = ok and bool((err <= rtol * w.abs()
+                          + atol_rel * w.abs().max()).all())
+        errs.append(float(err.max()))
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out_plain = chunked_attention(*leaves, *args[3:], window=window)
+    mask = allow_mask(pos, pos, seg, seg, window)[:, None]
+    lib = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out_lib = F.scaled_dot_product_attention(*lib, attn_mask=mask,
+                                                 enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    pairs = int(mask.sum())
+    elt = q.element_size()
+    bytes_moved = 2 * (q.numel() + k.numel() + v.numel()) * elt \
+        + dout.numel() * elt + (o32.numel() + lse.numel()) * 4 + 4 * 4 * S
+    # five products over visible pairs (S = QK, dP = dO V, dV, dK, dQ)
+    b_ms, b_by = bound(bytes_moved, 10.0 * D * H * pairs, dtype)
+    return {
+        "kernel": "spa_attention_bwd", "dtype": dtype, "B": 1, "S": S,
+        "H": H, "Hkv": Hkv, "D": D, "prompt": prompt,
+        "responses": responses, "resp_len": resp_len, "window": window,
+        "visible_pairs": pairs, "max_abs_err": max(errs),
+        "max_abs_err_dq_dk_dv": errs, "deterministic": deterministic,
+        "tol": {"rtol": rtol, "atol_rel_to_max": atol_rel}, "ok": ok,
+        "ms": timer.ms(lambda: spa_attention_bwd(*args, o32, lse, dout,
+                                                 window=window), 10),
+        "fwd_stats_ms": timer.ms(lambda: _forward_kernel(
+            *args, scale, window, stats=True), 10),
+        "plain_ms": timer.ms(lambda: torch.autograd.grad(
+            out_plain, leaves, dout, retain_graph=True), 3),
+        "library_ms": timer.ms(lambda: torch.autograd.grad(
+            out_lib, lib, dout_t, retain_graph=True), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+SPECIALS = [0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1.0,
+            1.00390625, 1.01171875,           # bf16 ties: to even, up
+            1e-40, -1e-40, 1e-45,             # f32 denormals
+            3.3895314e38, 3.4e38, -3.4e38]    # bf16 max, overflow
+
+
+def cast_bitwise(torch, got, want) -> bool:
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(torch.equal(
+        got[~nan].view(torch.int16), want[~nan].view(torch.int16)))
+
+
+def cast_cases(torch, timer, dev, gen, cfg):
+    """transfer_cast on every leaf of ``cfg``'s parameter tree (the
+    training run's shapes), a misaligned ragged length and special values,
+    bitwise against x.to(torch.bfloat16). Times one publish's worth of
+    casts: the sum over the tree's leaves."""
+    from repro_torch.kernels.transfer_cast import transfer_cast
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.transfer.plan import flatten_with_keys
+    bf16 = torch.bfloat16
+    specials = torch.tensor(SPECIALS, dtype=torch.float32, device=dev)
+    keys, shapes = flatten_with_keys(param_shapes(cfg))
+    leaves, ok = [], True
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    elements = 0
+    for key, shape in zip(keys, shapes):
+        x = torch.randn(tuple(shape), generator=gen, device=dev)
+        x.view(-1)[:specials.numel()] = specials
+        good = cast_bitwise(torch, transfer_cast(x, bf16), x.to(bf16))
+        ok = ok and good
+        row = {"leaf": key, "shape": list(shape), "bitwise": good,
+               "ms": timer.ms(lambda: transfer_cast(x, bf16), 5),
+               "plain_ms": timer.ms(lambda: x.to(bf16), 5),
+               "library_ms": timer.ms(lambda: x.to(torch.bfloat16), 5)}
+        for k in tot:
+            tot[k] += row[k]
+        elements += x.numel()
+        leaves.append(row)
+        del x
+    ragged = torch.randn(1_000_004, generator=gen, device=dev)[1:]
+    ragged[:specials.numel()] = specials
+    edge_ok = cast_bitwise(torch, transfer_cast(ragged, bf16),
+                           ragged.to(bf16)) and \
+        cast_bitwise(torch, transfer_cast(specials, bf16), specials.to(bf16))
+    ok = ok and edge_ok
+    b_ms, b_by = bound(6.0 * elements, float(elements), "float32")
+    return {"kernel": "transfer_cast", "dtype": "float32->bfloat16",
+            "tree_layers": cfg.num_layers, "leaves": len(leaves),
+            "elements": elements, "ragged_and_specials_bitwise": edge_ok,
+            "ok": ok, "max_abs_err": 0.0 if ok else None,
+            "per_leaf": leaves, **tot, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def decode_case(torch, timer, dev, gen, dtype, *, B, ctx_max, page=16):
@@ -392,6 +553,196 @@ def reduced_parity(torch, np, dev, seed: int):
 
 
 # ---------------------------------------------------------------------
+# phase 6: one periodic-async GRPO run at full width; phase 7: parity
+# ---------------------------------------------------------------------
+
+def train_config(layers: int = TRAIN_LAYERS):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3.2-3b"), num_layers=layers,
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def _tree_leaves(tree):
+    for k in sorted(tree):
+        v = tree[k]
+        yield from (_tree_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _pool_is_bf16_policy(torch, pool_params, policy) -> bool:
+    return all(bool(torch.equal(p, q.to(torch.bfloat16).float()))
+               for p, q in zip(_tree_leaves(pool_params),
+                               _tree_leaves(policy)))
+
+
+def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.train import build_pipeline
+    cfg = train_config()
+    rl = RLConfig(mode="async", rollout_engine="paged",
+                  num_inference_instances=1, cbatch_slots=8,
+                  batch_prompts=4, group_size=TRAIN_GROUP,
+                  max_prompt_len=TRAIN_PROMPT, max_response_len=TRAIN_RESP,
+                  shared_prompt_attention=True, capture_logprobs=True,
+                  transfer_wire_dtype="bfloat16", transfer_overlap=True,
+                  seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    # prompt_pad 96: prompts of about 120 tokens, under the 128 cap
+    sched, parts = build_pipeline(cfg, rl, seed=seed, prompt_pad=96,
+                                  device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    store = parts["pool"].instances[0].store
+    flips = []
+    ensure = sched.transfer.ensure
+
+    def checked_ensure(params, version):
+        v = ensure(params, version)
+        flips.append([version, _pool_is_bf16_policy(
+            torch, store.snapshot()[0], params)])
+        return v
+    sched.transfer.ensure = checked_ensure
+    reset_launch_counts()
+    hist = sched.run(iterations)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    tri = parts["tri"]
+    staged_ok = store.staged_version == iterations and _pool_is_bf16_policy(
+        torch, store.staged_params(), tri.policy)
+    L = cfg.num_layers
+    prefills = sum(h.metrics["prefills"] for h in hist)
+    steps = sum(h.metrics["decode_steps"] for h in hist)
+    cap, rec = sched.captured_micro_steps, sched.recomputed_micro_steps
+    n_leaves = len(sched.transfer.plan.leaves)
+    publishes = len(sched.transfer.publishes)
+    expect = {
+        # prefill: L; captured step: ref L + policy L + remat recompute L;
+        # recompute step: old L + ref L + policy L + recompute L
+        "spa_attention": L * (prefills + 3 * cap + 4 * rec),
+        "spa_attention_bwd": L * (cap + rec),
+        "paged_decode_attention": L * steps,
+        "transfer_cast": n_leaves * publishes,
+    }
+    formula = {
+        "spa_attention": f"L*(prefills + 3*captured + 4*recomputed) = "
+                         f"{L}*({prefills} + 3*{cap} + 4*{rec})",
+        "spa_attention_bwd": f"L*(captured + recomputed) = {L}*({cap} + {rec})",
+        "paged_decode_attention": f"L*decode_steps = {L}*{steps}",
+        "transfer_cast": f"leaves*publishes = {n_leaves}*{publishes}",
+    }
+    out = {
+        "phase": "train", "arch": cfg.name, "layers": L,
+        "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+        "params": sum(t.numel() for t in _tree_leaves(tri.policy)),
+        "mode": rl.mode, "N": rl.batch_prompts, "G": rl.group_size,
+        "max_prompt_len": rl.max_prompt_len,
+        "max_response_len": rl.max_response_len, "slots": rl.cbatch_slots,
+        "spa": True, "capture_logprobs": True, "wire_dtype": "bfloat16",
+        "overlap": True, "setup_s": setup_s,
+        "iterations": [{
+            "iteration": h.iteration, "wall_s": h.wall_time,
+            "infer_s": h.infer_time, "train_s": h.train_time,
+            "trained_tokens": h.trained_tokens, "tpspd": h.tpspd,
+            "sync_gap_s": h.metrics["sync_gap"],
+            "staleness": h.max_staleness, "reward_mean": h.reward_mean,
+            "prefills": h.metrics["prefills"],
+            "decode_steps": h.metrics["decode_steps"],
+            "generated_tokens": h.metrics["generated_tokens"]}
+            for h in hist],
+        "version": tri.version, "flips_bf16_bitwise": flips,
+        "staged_bf16_bitwise": staged_ok,
+        "captured_steps": cap, "recomputed_steps": rec,
+        "launches": launches, "expected_launches": expect,
+        "launch_formula": formula,
+        "publishes": sched.transfer.publishes,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+    }
+    if any(h.max_staleness != 0 or h.trained_tokens <= 0 for h in hist):
+        fail(f"train: staleness or empty iteration: {out['iterations']}")
+    if tri.version != iterations:
+        fail(f"train: tri.version {tri.version} != {iterations}")
+    if len(flips) != iterations or not all(ok for _, ok in flips) or \
+            not staged_ok:
+        fail(f"train: pool leaves are not the bf16-rounded policy: {flips}, "
+             f"staged {staged_ok}")
+    if launches != expect or 0 in expect.values():
+        fail(f"train: launches {launches} != expected {expect} ({formula})")
+    if not all(bool(torch.isfinite(t).all())
+               for t in _tree_leaves(tri.policy)):
+        fail("train: non-finite parameters after the updates")
+    return out
+
+
+def train_parity(torch, np, dev, seed: int):
+    """One captured grad step and one Adam update of reduced llama on the
+    card (kernels) against the CPU (plain versions)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.queue import RolloutGroup
+    from repro_torch.core.spa import pack_spa
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import init
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.rl.grpo import (make_apply_update,
+                                     make_grad_step_captured, to_device)
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    rl = RLConfig()                      # the paper's lr 1e-6, Adam, clip 1
+    G, Lp, T = 8, 40, 48
+    rng = np.random.RandomState(seed + 7)
+    lens = rng.randint(5, T + 1, size=G).astype(np.int32)
+    resp = np.zeros((G, T), np.int32)
+    for g in range(G):
+        resp[g, :lens[g]] = rng.randint(3, cfg.vocab_size, size=lens[g])
+    group = RolloutGroup(
+        uid=0, prompt_ids=rng.randint(3, cfg.vocab_size, size=Lp)
+        .astype(np.int32), response_ids=resp, response_len=lens,
+        rewards=np.zeros(G, np.float32), weight_version=0,
+        response_logprobs=(-3.0 * rng.rand(G, T)).astype(np.float32))
+    adv = rng.randn(G).astype(np.float32)        # non-constant advantages
+    mb = pack_spa(group, adv, Lp, T, responses_per_row=G)
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                for k, v in tree.items()}
+    policy = init(cfg, seed=seed, device="cpu")
+    other = init(cfg, seed=seed + 1, device="cpu")
+    ref = {k: v for k, v in policy.items()}
+    ref["layers"] = {k: {kk: vv + 0.05 * other["layers"][k][kk]
+                         for kk, vv in v.items()}
+                     for k, v in policy["layers"].items()}
+    results = []
+    reset_launch_counts()
+    for where in ("cpu", dev):
+        p, r = to(policy, where), to(ref, where)
+        grads, metrics = make_grad_step_captured(cfg, rl)(
+            p, None, r, to_device(mb, where))
+        new, _, _ = make_apply_update(cfg, rl)(p, adam_init(p), grads)
+        results.append((to(grads, "cpu"), to(new, "cpu"),
+                        float(metrics["loss"])))
+    launches = dict(LAUNCHES)
+    (g_cpu, p_cpu, l_cpu), (g_gpu, p_gpu, l_gpu) = results
+
+    def worst(a, b):
+        return max(float((x - y).abs().max()) /
+                   max(float(y.abs().max()), 1e-30)
+                   for x, y in zip(_tree_leaves(a), _tree_leaves(b)))
+    grad_err, param_err = worst(g_gpu, g_cpu), worst(p_gpu, p_cpu)
+    out = {"phase": "train_parity", "arch": cfg.name, "dtype": "float32",
+           "G": G, "packed_row_len": int(mb.tokens.shape[1]),
+           "loss_card": l_gpu, "loss_cpu": l_cpu,
+           "grad_max_err_rel_to_leaf_max": grad_err,
+           "param_max_err_rel_to_leaf_max": param_err, "tol": 2e-4,
+           "launches_card": launches}
+    if not (grad_err <= 2e-4 and param_err <= 2e-4) or \
+            launches["spa_attention_bwd"] != cfg.num_layers:
+        fail(f"train parity: card and CPU disagree: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -432,6 +783,7 @@ def main() -> None:
     timer = Timer(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = []
+    bwd_cases = []
     for dtype in ("bfloat16", "float32"):
         cases.append(spa_case(torch, timer, dev, gen, dtype, prompt=1024))
         cases.append(spa_case(torch, timer, dev, gen, dtype, prompt=256,
@@ -442,9 +794,26 @@ def main() -> None:
                                  ctx_max=1056))
         cases.append(decode_case(torch, timer, dev, gen, dtype, B=16,
                                  ctx_max=8192))
-    for c in cases:
+        bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
+                                      prompt=1024))
+        bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
+                                      prompt=256, responses=4, resp_len=128))
+        bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
+                                      prompt=1024, window=256))
+    # the training run's shapes (f32): an SPA row of a ~120-token prompt
+    # and G slots of 1 + 64 tokens; rollout decode at 8 slots
+    train_spa = spa_case(torch, timer, dev, gen, "float32", prompt=120,
+                         responses=TRAIN_GROUP, resp_len=1 + TRAIN_RESP)
+    train_bwd = spa_bwd_case(torch, timer, dev, gen, "float32", prompt=120,
+                             responses=TRAIN_GROUP, resp_len=1 + TRAIN_RESP)
+    train_dec = decode_case(torch, timer, dev, gen, "float32", B=8,
+                            ctx_max=TRAIN_PROMPT + TRAIN_RESP)
+    cast = cast_cases(torch, timer, dev, gen, train_config())
+    cases += [train_spa, train_dec]
+    bwd_cases.append(train_bwd)
+    for c in cases + bwd_cases + [cast]:
         emit({"phase": "kernel", **c})
-    bad = [c for c in cases if not c["ok"]]
+    bad = [c for c in cases + bwd_cases + [cast] if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel case(s) disagree with the plain version")
 
@@ -457,18 +826,34 @@ def main() -> None:
     emit(profile_decode(torch, np, eng, prompts, args.seed))
     del eng, params
     emit(reduced_parity(torch, np, dev, args.seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_full_width(torch, np, dev, args.seed)
+    emit(train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(train_parity(torch, np, dev, args.seed))
 
+    # the training run's launches, each kernel timed at that run's shapes
     meta = {
         "spa_attention": ("src/repro_torch/kernels/csrc/spa_attention.cu",
-                          "src/repro/kernels/spa_attention.py:104", cases[0]),
+                          "src/repro/kernels/spa_attention.py:104",
+                          train_spa),
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-            "src/repro/kernels/decode_attention.py:242", cases[3]),
+            "src/repro/kernels/decode_attention.py:242", train_dec),
+        "transfer_cast": ("src/repro_torch/kernels/csrc/transfer_cast.cu",
+                          "src/repro/kernels/transfer_cast.py:55", cast),
+        "spa_attention_bwd": (
+            "src/repro_torch/kernels/csrc/spa_attention_bwd.cu",
+            "src/repro/kernels/spa_attention.py:104", train_bwd),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": c["max_abs_err"],
-         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+         "launches": train["launches"][name],
+         "launches_serve": launches.get(name, 0),
+         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
         for name, (src, rep, c) in meta.items()]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.configs.llama3p2_3b import CONFIG as _llama32
 
 REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (_llama32,)}
@@ -39,6 +39,8 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         head_dim=64 if heads else 0,
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512),
+        attn_chunk_size=64,
+        loss_chunk_size=64,
         param_dtype="float32",
         compute_dtype="float32",
     )
@@ -48,4 +50,4 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
 
 
 __all__ = ["REGISTRY", "ARCH_IDS", "get_config", "reduced_config",
-           "ModelConfig"]
+           "ModelConfig", "RLConfig"]

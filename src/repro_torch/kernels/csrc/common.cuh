@@ -17,6 +17,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);   // round to nearest even, once, at the output
 }
 
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);      // exact
+}
+
 // One 16-byte vector of T (4 f32 or 8 bf16) unpacked to f32; bf16 -> f32 is
 // exact (the bf16 bits are the top half of the f32).
 template <typename T> __device__ __forceinline__ void unpack16(const uint4& r, float* dst);

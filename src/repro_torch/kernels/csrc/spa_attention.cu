@@ -4,6 +4,11 @@
 // src/repro/kernels/spa_attention.py (body `_kernel`, host `block_map`).
 // Mask: kv visible iff kv_pos <= q_pos && (kv_seg == 0 || kv_seg == q_seg)
 // [&& q_pos - kv_pos < window]. Online softmax in f32, output rounded once.
+// For training, the launch may also ask for each (row, head, query)'s
+// log-sum-exp of the scaled scores and an f32 copy of the output: the
+// backward kernel (spa_attention_bwd.cu) recomputes the probabilities from
+// the former and takes rowsum(dO * O) from the latter, so a bf16 forward's
+// gradient does not carry the output's bf16 rounding.
 //
 // What bounds it on an H100: at prefill lengths the work is O(S^2 D) and
 // the kernel is compute bound. This first version keeps Q, K and V tiles
@@ -43,8 +48,8 @@ __global__ void __launch_bounds__(NT)
 spa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const int* __restrict__ qpos, const int* __restrict__ kvpos,
            const int* __restrict__ qseg, const int* __restrict__ kvseg,
-           T* __restrict__ out, int Sq, int Skv, int H, int Hkv, int window,
-           float scale) {
+           T* __restrict__ out, float* __restrict__ lse, float* __restrict__ o32,
+           int Sq, int Skv, int H, int Hkv, int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                    // BQ x (D+1), padded: no bank conflicts
   float* ks = qs + BQ * (D + 1);       // BK x (D+1)
@@ -153,17 +158,25 @@ spa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
   if (row_valid) {
     const float denom = fmaxf(l, 1e-30f);
-    T* o = out + (((size_t)b * Sq + q0 + row) * H + h) * D;
+    const size_t at = (((size_t)b * Sq + q0 + row) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) o[sub + 4 * j] = repro::from_f<T>(acc[j] / denom);
+    for (int j = 0; j < DPT; ++j) out[at + sub + 4 * j] = repro::from_f<T>(acc[j] / denom);
+    if (o32 != nullptr) {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) o32[at + sub + 4 * j] = acc[j] / denom;
+    }
+    // a row that sees no key keeps m = NEG_INF: its lse stays about -1e30,
+    // and the backward masks all of its probabilities to 0 anyway
+    if (lse != nullptr && sub == 0)
+      lse[((size_t)b * H + h) * Sq + q0 + row] = m + logf(denom);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
                    const int* kvpos, const int* qseg, const int* kvseg, void* out,
-                   int B, int Sq, int Skv, int H, int Hkv, int window, float scale,
-                   cudaStream_t stream) {
+                   float* lse, float* o32, int B, int Sq, int Skv, int H, int Hkv,
+                   int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       spa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -171,7 +184,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   spa_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      qpos, kvpos, qseg, kvseg, static_cast<T*>(out), Sq, Skv, H, Hkv, window, scale);
+      qpos, kvpos, qseg, kvseg, static_cast<T*>(out), lse, o32, Sq, Skv, H, Hkv,
+      window, scale);
   return cudaGetLastError();
 }
 
@@ -179,25 +193,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* qpos,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0: no window.
+// dtype: 0 = float32, 1 = bfloat16. window <= 0: no window. lse (B, H, Sq)
+// and o32 (B, Sq, H, D), both f32, may each be null (serving passes neither).
 int spa_attention_launch(const void* q, const void* k, const void* v,
                          const void* qpos, const void* kvpos, const void* qseg,
-                         const void* kvseg, void* out, int B, int Sq, int Skv,
-                         int H, int Hkv, int D, int dtype, int window, float scale,
-                         void* stream) {
+                         const void* kvseg, void* out, void* lse, void* o32,
+                         int B, int Sq, int Skv, int H, int Hkv, int D, int dtype,
+                         int window, float scale, void* stream) {
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kvpos);
   const int* qg = static_cast<const int*>(qseg);
   const int* kg = static_cast<const int*>(kvseg);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
+  float* o3 = static_cast<float*>(o32);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, qp, kp, qg, kg, out, B, Sq, Skv, H, Hkv, window, scale, st);
+    return launch<float, 64>(q, k, v, qp, kp, qg, kg, out, ls, o3, B, Sq, Skv, H, Hkv, window, scale, st);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, qp, kp, qg, kg, out, B, Sq, Skv, H, Hkv, window, scale, st);
+    return launch<float, 128>(q, k, v, qp, kp, qg, kg, out, ls, o3, B, Sq, Skv, H, Hkv, window, scale, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, qp, kp, qg, kg, out, B, Sq, Skv, H, Hkv, window, scale, st);
+    return launch<__nv_bfloat16, 64>(q, k, v, qp, kp, qg, kg, out, ls, o3, B, Sq, Skv, H, Hkv, window, scale, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, qp, kp, qg, kg, out, B, Sq, Skv, H, Hkv, window, scale, st);
+    return launch<__nv_bfloat16, 128>(q, k, v, qp, kp, qg, kg, out, ls, o3, B, Sq, Skv, H, Hkv, window, scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import build, count_launch
 from repro_torch.kernels.spa_attention import chunked_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -127,5 +127,5 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos,
            build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
            build.ptr(out), B, H, Hkv, D, page, n_max, _DTYPES[q.dtype],
            window or 0, scale, ctypes.c_void_p(stream))
-    LAUNCHES["paged_decode_attention"] += 1
+    count_launch("paged_decode_attention")
     return out

@@ -1,5 +1,6 @@
 from repro_torch.models.model import (forward, forward_hidden, init,
-                                      init_caches, init_paged_caches, logits)
+                                      init_caches, init_paged_caches, logits,
+                                      token_logprobs)
 
 __all__ = ["forward", "forward_hidden", "init", "init_caches",
-           "init_paged_caches", "logits"]
+           "init_paged_caches", "logits", "token_logprobs"]

@@ -157,6 +157,7 @@ def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
             kk, vv, kp, ks = be.read(be.write_prefill(cache, (k, v),
                                                       positions, segments))
         out = spa_attention(q, kk, vv, positions, kp, segments, ks,
-                            window=cfg.sliding_window)
+                            window=cfg.sliding_window,
+                            chunk_size=cfg.attn_chunk_size)
     out = out.reshape(B, S, H * hd) @ params["wo"]
     return out, cache

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, require_engine_support
 from repro_torch.models.attention import (DenseCacheBackend,
@@ -64,10 +65,17 @@ def init_model(cfg: ModelConfig, *, seed: int, device) -> dict:
     return walk(param_shapes(cfg), False)
 
 
-def layer(tree: dict, i: int) -> dict:
-    """Layer ``i``'s views of a tree stacked over layers."""
+def layer(tree, i: int) -> dict:
+    """Layer ``i``'s views of a tree stacked over layers (or entry ``i`` of
+    a per-layer list, the layout the grad step differentiates)."""
+    if isinstance(tree, list):
+        return tree[i]
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _block_hidden(bp: dict, cfg: ModelConfig, x, positions, segments):
+    return block_forward(bp, cfg, x, positions, segments)[0]
 
 
 def block_forward(bp: dict, cfg: ModelConfig, x, positions, segments, *,
@@ -91,7 +99,11 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Token ids (B, S) -> final hidden states (B, S, d).
 
     ``caches`` (dense prefill caches or the paged pool, stacked over
-    layers) are written in place. Returns (hidden, caches)."""
+    layers) are written in place. A training forward (autograd recording,
+    no caches) checkpoints each layer when ``cfg.remat``, as
+    ``jax.checkpoint`` does in the JAX package: the backward recomputes the
+    layer's forward instead of keeping its activations. Returns (hidden,
+    caches)."""
     B, S = tokens.shape
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     if positions is None:
@@ -101,6 +113,13 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         segments = torch.zeros((B, S), dtype=torch.int32, device=tokens.device)
     positions = positions.to(torch.int32).contiguous()
     segments = segments.to(torch.int32).contiguous()
+    if cfg.remat and caches is None and torch.is_grad_enabled():
+        for i in range(cfg.num_layers):
+            # the block draws no random numbers: no RNG state to keep
+            x = checkpoint(_block_hidden, layer(params["layers"], i), cfg, x,
+                           positions, segments, use_reentrant=False,
+                           preserve_rng_state=False)
+        return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), caches
     for i in range(cfg.num_layers):
         x, _ = block_forward(
             layer(params["layers"], i), cfg, x, positions, segments,

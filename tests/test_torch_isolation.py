@@ -42,7 +42,9 @@ def _imported_modules(path: pathlib.Path):
 def test_port_scan_covers_the_package():
     names = {p.name for p in _port_files()}
     assert {"paged.py", "serve.py", "spa_attention.py",
-            "decode_attention.py", "chip_smoke.py"} <= names
+            "decode_attention.py", "chip_smoke.py", "train.py",
+            "scheduler.py", "service.py", "transfer_cast.py", "grpo.py"
+            } <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -60,6 +62,8 @@ def test_entry_modules_import_with_jax_and_repro_blocked():
         "    sys.modules[m] = None\n"
         "import repro_torch.launch.serve, repro_torch.core.paged\n"
         "import repro_torch.convert, repro_torch.kernels.build\n"
+        "import repro_torch.launch.train, repro_torch.core.scheduler\n"
+        "import repro_torch.kernels.transfer_cast\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")

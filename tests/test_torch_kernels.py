@@ -166,3 +166,31 @@ def test_wrappers_refuse_devices_without_a_kernel():
         spa_attention(q, q, q, p, p, p, p)
     with pytest.raises(ValueError, match="no kernel"):
         paged_decode_attention(q[:, 0], q, q, p, p, p[:, 0])
+
+
+def test_launch_counts_are_not_lost_across_threads():
+    """Rollout producer threads and the trainer launch kernels at once:
+    every counted launch must show, with threads switching as often as
+    the interpreter allows."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import LAUNCHES, count_launch
+    n_threads, per_thread = 16, 2000
+    before = LAUNCHES["transfer_cast"]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [count_launch("transfer_cast")
+                            for _ in range(per_thread)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert LAUNCHES["transfer_cast"] == before + n_threads * per_thread
+    LAUNCHES["transfer_cast"] = before
