@@ -23,7 +23,13 @@ Phases, each printing one JSON line (every phase fails the run on error):
      port never calls it), and the least time the card could take (bytes
      over 3.35 TB/s or operations over the dtype's peak, whichever is
      larger; operations count the (query, key) pairs these inputs make
-     visible). Each timed call starts with the 50 MB L2 cache flushed;
+     visible). Each timed call starts with the 50 MB L2 cache flushed.
+     Paged verify (S query tokens per row, each at its own position) at
+     the spec shape (B 4, S 5, contexts up to 1060; bf16 and f32), the
+     rollout engine's (B 8, S 5, contexts up to 196, f32), a suffix
+     prefill (B 1, 512 tokens after 512 cached, bf16) and a windowed
+     case; the contiguous-cache decode_attention and verify_attention
+     wrappers (the same two kernels on a one-page-per-row view);
   3. serve: full-width llama3.2-3b (28 layers, random bf16 weights made
      on the card from --seed) serves 8 requests (prompts of 64 to 1024
      tokens, 32 new tokens each, 4 slots, page 16, temperature 0.7)
@@ -52,7 +58,27 @@ Phases, each printing one JSON line (every phase fails the run on error):
      and one Adam update on the same SPA-packed micro-batch with seeded
      non-constant advantages, on the card (kernels) against the CPU (plain
      versions): gradients and updated parameters within 2e-4 of each
-     leaf's largest entry.
+     leaf's largest entry;
+  8. spec_serve: the model of phase 3 serves the same 8 requests through
+     RequestDriver with speculative decode (prompt lookup, k 4,
+     temperature 0.7). Prints tok/s, TTFT/TPOT p50/p99, acceptance rate,
+     tokens per verify forward, rolled-back pages and peak memory, then
+     profiles spec steps as phase 4 profiles decode steps. Checks
+     that every page returns to the freelist and that launches equal 28 x
+     prefills (SPA), 28 x verify forwards (paged verify) and 0 (paged
+     decode);
+  9. radix_serve: the same model through serve_shared: a 512-token system
+     prompt (32 pages) and 8 suffixes of 16 to 256 tokens, spec off, then
+     on. Checks 7 x 32 prefix hit pages, SPA launches = 28 x cold
+     prefills, verify launches = 28 x (warm prefills + verify forwards),
+     and that after the drain only the tree's pages stay live, one
+     reference each;
+ 10. spec_parity: reduced llama (2 layers, f32), card against CPU: greedy
+     spec tokens identical to the CPU's and to the card's own non-spec
+     greedy tokens; warm radix tokens identical to cold; a warm suffix
+     prefill's last-token logits within 1e-3 of the cold prefill's.
+
+Phases 8 and 9 run right after phase 4, on the same weights.
 
 Phase 2 also holds the SPA backward kernel against autograd of the plain
 version (full-width heads; a 1024-token prompt, an SPA-packed row, a
@@ -61,8 +87,10 @@ bitwise equal) and the transfer_cast kernel against x.to(torch.bfloat16),
 bitwise, on every leaf of the training tree, a misaligned ragged length
 and special values (ties, denormals, +-Inf, NaN).
 
-Then one line {"kernels": [...]} with the four kernels at the training
-run's shapes and launch counts, and last {"ok": true, "device": {...}}.
+Then one line {"kernels": [...]} with the five kernels: the four of the
+training path at the training run's shapes and launch counts (phase 6),
+paged_verify_attention at the spec shape with phase 8's launches; and
+last {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
 """
@@ -397,6 +425,152 @@ def decode_case(torch, timer, dev, gen, dtype, *, B, ctx_max, page=16):
     }
 
 
+def _fragmented_pool(np, rng, lens, page, n_max):
+    """Rows b hold ``lens[b]`` tokens in pages scattered over the pool."""
+    INVALID = 2 ** 30
+    n_pages = [-(-int(n) // page) for n in lens]
+    P = 2 + sum(n_pages)
+    ids = rng.permutation(np.arange(2, P))
+    table = np.zeros((len(lens), n_max), np.int32)
+    pos = np.full((P, page), INVALID, np.int32)
+    nxt = 0
+    for b, (n, npg) in enumerate(zip(lens, n_pages)):
+        for j in range(npg):
+            pid = ids[nxt]
+            nxt += 1
+            table[b, j] = pid
+            p = np.arange(j * page, (j + 1) * page)
+            pos[pid] = np.where(p < n, p, INVALID)
+    return P, pos, table, sum(n_pages)
+
+
+def _visible(np, q_pos, kv_pos, window):
+    """(B, S, L) keys each query sees, as the kernels' mask says."""
+    ok = kv_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        ok &= (q_pos[:, :, None] - kv_pos[:, None, :]) < window
+    return ok
+
+
+def verify_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, page=16,
+                window=None, suffix=False):
+    """Paged verify at full-width heads: each row holds its context in
+    fragmented pages and its last S tokens are the block (already
+    written). Spec shapes mark row 0's last token as a masked slot (pos
+    2^30, which sees every slot, as a fresh row's pad slot does)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        gather_pages, paged_verify_attention, paged_verify_attention_plain)
+    H, Hkv, D = 24, 8, 128
+    rng = np.random.RandomState(B * 1000 + S)
+    lens = (np.asarray([ctx_max]) if suffix else
+            np.linspace(max(S, ctx_max // 8), ctx_max, B).astype(int))
+    n_max = -(-ctx_max // page) + 1
+    P, pos, table, used_pages = _fragmented_pool(np, rng, lens, page, n_max)
+    q_pos = np.stack([np.arange(n - S, n) for n in lens]).astype(np.int32)
+    if not suffix:
+        q_pos[0, -1] = 2 ** 30
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+    kp = torch.randn(P, page, Hkv, D, generator=gen, device=dev).to(dt)
+    vp = torch.randn(P, page, Hkv, D, generator=gen, device=dev).to(dt)
+    pos_t = torch.from_numpy(pos).to(dev)
+    table_t = torch.from_numpy(table).to(dev)
+    qpos_t = torch.from_numpy(q_pos).to(dev)
+    args = (q, kp, vp, pos_t, table_t, qpos_t)
+    got = paged_verify_attention(*args, window=window)
+    want = paged_verify_attention_plain(*f32(args), window=window)
+    err, ok = max_err(torch, got, want, TOL[dtype])
+    kv_pos = pos[table].reshape(B, -1)
+    vis = _visible(np, q_pos, kv_pos, window)
+    pairs = int(vis.sum())
+    keys = int(vis.any(axis=1).sum())          # keys some query sees
+
+    def library():
+        k, v, kvp = gather_pages(kp, vp, pos_t, table_t)
+        mask = kvp[:, None, :] <= qpos_t[:, :, None]
+        if window is not None:
+            mask &= (qpos_t[:, :, None] - kvp[:, None, :]) < window
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None], enable_gqa=True)
+    elt = q.element_size()
+    bytes_moved = (2 * q.numel() + 2 * keys * Hkv * D) * elt \
+        + 4 * (used_pages * page + table.size + q_pos.size)
+    b_ms, b_by = bound(bytes_moved, 4.0 * D * H * pairs, dtype)
+    return {
+        "kernel": "paged_verify_attention", "dtype": dtype, "B": B, "S": S,
+        "ctx_max": int(ctx_max), "n_max": n_max, "page": page, "H": H,
+        "Hkv": Hkv, "D": D, "window": window, "suffix_prefill": suffix,
+        "visible_keys": keys, "visible_pairs": pairs,
+        "max_abs_err": err, "tol": TOL[dtype], "ok": ok,
+        "ms": timer.ms(lambda: paged_verify_attention(*args, window=window),
+                       20),
+        "plain_ms": timer.ms(lambda: paged_verify_attention_plain(
+            *args, window=window), 5),
+        "library_ms": timer.ms(library, 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def contiguous_case(torch, timer, dev, gen, dtype, *, verify, B=4, S=5,
+                    L=1060):
+    """decode_attention (one query per row) or verify_attention (S per
+    row) over a contiguous (B, L, Hkv, D) cache, which launch the paged
+    kernels through a one-page-per-row view; rows hold L/8 to L tokens."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, verify_attention,
+        verify_attention_plain)
+    H, Hkv, D = 24, 8, 128
+    S = S if verify else 1
+    lens = np.linspace(L // 8, L, B).astype(int)
+    kv_pos = np.where(np.arange(L)[None] < lens[:, None], np.arange(L)[None],
+                      2 ** 30).astype(np.int32)
+    q_pos = np.stack([np.arange(n - S, n) for n in lens]).astype(np.int32)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, L, Hkv, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, L, Hkv, D, generator=gen, device=dev).to(dt)
+    kvp = torch.from_numpy(kv_pos).to(dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    if verify:
+        name, fn, plain = "verify_attention", verify_attention, \
+            verify_attention_plain
+        args = (q, k, v, kvp, qp)
+    else:
+        name, fn, plain = "decode_attention", decode_attention, \
+            decode_attention_plain
+        args = (q[:, 0].contiguous(), k, v, kvp, qp[:, 0].contiguous())
+    got = fn(*args)
+    err, ok = max_err(torch, got, plain(*f32(args)), TOL[dtype])
+    vis = _visible(np, q_pos, kv_pos, None)
+    pairs, keys = int(vis.sum()), int(vis.any(axis=1).sum())
+    mask = (kvp[:, None, :] <= qp[:, :, None])[:, None]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+    elt = q.element_size()
+    bytes_moved = (2 * B * S * H * D + 2 * keys * Hkv * D) * elt \
+        + 4 * (kv_pos.size + q_pos.size)
+    b_ms, b_by = bound(bytes_moved, 4.0 * D * H * pairs, dtype)
+    return {
+        "kernel": name, "launches_kernel": (
+            "paged_verify_attention" if verify else "paged_decode_attention"),
+        "dtype": dtype, "B": B, "S": S, "L": L, "H": H, "Hkv": Hkv, "D": D,
+        "visible_keys": keys, "visible_pairs": pairs,
+        "max_abs_err": err, "tol": TOL[dtype], "ok": ok,
+        "ms": timer.ms(lambda: fn(*args), 20),
+        "plain_ms": timer.ms(lambda: plain(*args), 5),
+        "library_ms": timer.ms(library, 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 # ---------------------------------------------------------------------
 # phase 3: full-width serving; phase 4: reduced parity with the CPU
 # ---------------------------------------------------------------------
@@ -553,6 +727,243 @@ def reduced_parity(torch, np, dev, seed: int):
 
 
 # ---------------------------------------------------------------------
+# phases 8-10: speculative decode and the radix prefix cache
+# ---------------------------------------------------------------------
+
+SPEC_K = 4
+
+
+def _pages_conserved(eng) -> bool:
+    """Drained engine: every page is free or held by the radix tree, and
+    the tree holds exactly one reference on each of its pages."""
+    from repro_torch.core.paged import FIRST_PAGE
+    tree = eng.radix.pages() if eng.radix is not None else []
+    return (eng.idle and eng.alloc.num_free + eng.alloc.num_live
+            == eng.P - FIRST_PAGE and eng.alloc.num_live == len(tree)
+            and all(eng.alloc.refcount(p) == 1 for p in tree))
+
+
+def spec_serve(torch, np, dev, params, prompts, seed: int):
+    """Phase 3's 8 requests through RequestDriver with spec decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine, serve_requests
+    cfg = get_config("llama3.2-3b")
+    kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
+              temperature=0.7, spec_k=SPEC_K)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = build_paged_engine(cfg, device=dev, **kw)
+    serve_requests(cfg, prompts[:1], params=params, engine=eng, seed=seed,
+                   arrivals=np.zeros(1), **kw)        # warm-up request
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reqs, m, stats = serve_requests(cfg, prompts, params=params, engine=eng,
+                                    seed=seed, arrivals=np.zeros(len(prompts)),
+                                    **kw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    snap = eng.stats_snapshot()
+    L = cfg.num_layers
+    expect = {"spa_attention": L * snap["prefills"],
+              "paged_verify_attention": L * snap["decode_steps"],
+              "paged_decode_attention": 0}
+    out = {
+        "phase": "spec_serve", "arch": cfg.name, "layers": L,
+        "dtype": cfg.param_dtype, "requests": len(reqs), "spec_k": SPEC_K,
+        "draft": "prompt_lookup", "max_new": 32, "slots": 4, "page": 16,
+        "temperature": 0.7, "generated_tokens": m["generated_tokens"],
+        "tok_per_s": m["tok_per_s"], "makespan_s": m["makespan_s"],
+        "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
+        "tpot_p50_s": m["tpot_p50_s"], "tpot_p99_s": m["tpot_p99_s"],
+        "prefills": snap["prefills"], "verify_forwards": snap["decode_steps"],
+        "row_verifies": snap["spec_steps"],
+        "acceptance_rate": stats["acceptance_rate"],
+        "tokens_per_forward": stats["tokens_per_forward"],
+        "rolled_back_pages": stats["rolled_back_pages"],
+        "peak_pages": stats["peak_pages"], "launches": launches,
+        "expected_launches": expect,
+        "pages_conserved": _pages_conserved(eng),
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "first_tokens": [r.tokens[:8] for r in reqs[:2]],
+    }
+    if {k: launches[k] for k in expect} != expect or \
+            snap["prefills"] != len(prompts) or snap["decode_steps"] == 0:
+        fail(f"spec_serve: launches {launches} != {expect}")
+    if not out["pages_conserved"]:
+        fail("spec_serve: pages did not all return to the freelist")
+    for r in reqs:
+        if not 1 <= len(r.tokens) <= 32 or \
+                not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            fail(f"spec_serve: request {r.rid}: bad tokens {r.tokens}")
+    return eng, out
+
+
+def radix_serve(torch, np, dev, params, seed: int):
+    """serve_shared over a 512-token system prompt and 8 suffixes, spec
+    off and then on."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine, serve_shared
+    cfg = get_config("llama3.2-3b")
+    rng = np.random.RandomState(seed + 9)
+    system = rng.randint(3, cfg.vocab_size, size=512).astype(np.int32)
+    sfx_lens = np.linspace(16, 256, 8).astype(int)
+    suffixes = [rng.randint(3, cfg.vocab_size, size=int(n)).astype(np.int32)
+                for n in sfx_lens]
+    L = cfg.num_layers
+    runs = []
+    for spec_k in (0, SPEC_K):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        full = len(system) + int(sfx_lens.max())
+        eng = build_paged_engine(cfg, max_prompt_len=full, max_new=32,
+                                 num_slots=len(suffixes), page_size=16,
+                                 temperature=0.7, spec_k=spec_k,
+                                 prefix_cache=True, device=dev)
+        done, stats = serve_shared(cfg, system, suffixes, max_prompt_len=full,
+                                   max_new=32, page_size=16, temperature=0.7,
+                                   seed=seed, spec_k=spec_k, params=params,
+                                   engine=eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        snap = eng.stats_snapshot()
+        expect = {"spa_attention": L * snap["prefills"],
+                  "paged_verify_attention": L * (
+                      snap["warm_prefills"]
+                      + (snap["decode_steps"] if spec_k else 0)),
+                  "paged_decode_attention": (0 if spec_k
+                                             else L * snap["decode_steps"])}
+        run = {
+            "spec_k": spec_k, "wall_s": wall,
+            "generated_tokens": stats["generated_tokens"],
+            "tok_per_s": stats["tok_per_s"],
+            "cold_prefills": snap["prefills"],
+            "warm_prefills": snap["warm_prefills"],
+            "decode_steps": snap["decode_steps"],
+            "prefix_hit_pages": snap["prefix_hit_pages"],
+            "prefix_miss_pages": snap["prefix_miss_pages"],
+            "prefix_hit_rate": stats["prefix_hit_rate"],
+            "prompt_pages_saved": stats["prompt_pages_saved"],
+            "tree_pages": len(eng.radix.pages()),
+            "pages_conserved": _pages_conserved(eng),
+            "launches": launches, "expected_launches": expect,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        }
+        if spec_k:
+            run.update(acceptance_rate=stats["acceptance_rate"],
+                       tokens_per_forward=stats["tokens_per_forward"],
+                       rolled_back_pages=stats["rolled_back_pages"])
+        runs.append(run)
+        if snap["prefix_hit_pages"] != 7 * 32 or snap["prefills"] != 1 or \
+                snap["warm_prefills"] != 7:
+            fail(f"radix_serve: expected 7 x 32 hit pages from 1 cold and 7 "
+                 f"warm prefills, got {run}")
+        if {k: launches[k] for k in expect} != expect:
+            fail(f"radix_serve: launches {launches} != {expect}")
+        if not run["pages_conserved"]:
+            fail(f"radix_serve: pages not conserved after the drain: {run}")
+        for c in done:
+            if not 1 <= len(c.response_ids) <= 32:
+                fail(f"radix_serve: request {c.request_id}: "
+                     f"{len(c.response_ids)} tokens")
+        del eng
+    return {"phase": "radix_serve", "arch": cfg.name, "layers": L,
+            "system_tokens": len(system), "system_pages": 32,
+            "suffix_lens": [int(n) for n in sfx_lens], "max_new": 32,
+            "page": 16, "temperature": 0.7, "runs": runs}
+
+
+def spec_parity(torch, np, dev, seed: int):
+    """Reduced llama on the card against the CPU: greedy spec decode, warm
+    radix serving and the warm suffix prefill's logits."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.paged import PagedGroupEngine
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve_paged, serve_shared
+    from repro_torch.models import init
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    p_cpu = init(cfg, seed=seed, device="cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                for k, v in tree.items()}
+    p_gpu = to(p_cpu, dev)
+    rng = np.random.RandomState(seed + 2)
+    # prompts that repeat themselves, so the prompt lookup drafts hit
+    prompts = []
+    for n in rng.randint(8, 40, size=4):
+        base = rng.randint(3, cfg.vocab_size, size=(int(n) // 2 + 1,))
+        prompts.append(np.concatenate([base, base])[:int(n)].astype(np.int32))
+    kw = dict(max_prompt_len=48, max_new=16, num_slots=2, page_size=16,
+              temperature=0.0, seed=seed)
+    reset_launch_counts()
+
+    def tokens(done):
+        return {c.request_id: c.response_ids.tolist() for c in done}
+    done_gpu, spec_stats = serve_paged(cfg, prompts, device=dev,
+                                       params=p_gpu, spec_k=SPEC_K, **kw)
+    spec_gpu = tokens(done_gpu)
+    spec_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+                                  spec_k=SPEC_K, **kw)[0])
+    plain_gpu = tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
+                                   **kw)[0])
+    if not spec_gpu == spec_cpu == plain_gpu:
+        fail(f"spec greedy tokens differ: card {spec_gpu}, CPU {spec_cpu}, "
+             f"card non-spec {plain_gpu}")
+    system = rng.randint(3, cfg.vocab_size, size=32).astype(np.int32)
+    sufs = [rng.randint(3, cfg.vocab_size, size=int(n)).astype(np.int32)
+            for n in (5, 17, 9)]
+    warm, wstats = serve_shared(cfg, system, sufs, max_prompt_len=64,
+                                max_new=16, page_size=16, temperature=0.0,
+                                seed=seed, params=p_gpu, device=dev)
+    cold, _ = serve_paged(cfg, [np.concatenate([system, s]) for s in sufs],
+                          device=dev, params=p_gpu,
+                          **dict(kw, max_prompt_len=64))
+    if tokens(warm) != tokens(cold) or wstats["prompt_pages_saved"] != 4:
+        fail(f"warm radix tokens {tokens(warm)} != cold {tokens(cold)} "
+             f"(pages saved {wstats['prompt_pages_saved']})")
+    # the warm suffix prefill's last-token logits against a cold prefill
+    ekw = dict(num_slots=2, page_size=16, num_pages=0, max_prompt_len=64,
+               max_new_tokens=4, group_size=1, temperature=0.0,
+               capture_logprobs=False)
+    eng = PagedGroupEngine(cfg, prefix_cache=True, device=dev, **ekw)
+    eng.set_params(p_gpu)
+    eng.submit(np.concatenate([system, sufs[0]]), 0)
+    eng.step()
+    h = eng.submit(np.concatenate([system, sufs[1]]), 1)
+    eng.step()
+    ref = PagedGroupEngine(cfg, device="cpu", **ekw)
+    ref.set_params(p_cpu)
+    h_ref = ref.submit(np.concatenate([system, sufs[1]]), 1)
+    ref.step()
+    err = float((h._group.prompt_logits.cpu()
+                 - h_ref._group.prompt_logits).abs().max())
+    launches = dict(LAUNCHES)
+    while eng.step():
+        pass
+    while ref.step():
+        pass
+    out = {"phase": "spec_parity", "arch": cfg.name, "dtype": "float32",
+           "spec_k": SPEC_K, "requests": len(prompts),
+           "spec_tokens": sum(len(t) for t in spec_cpu.values()),
+           "spec_acceptance_rate": spec_stats["acceptance_rate"],
+           "spec_tokens_per_forward": spec_stats["tokens_per_forward"],
+           "spec_identical_cpu_and_nonspec": True,
+           "radix_warm_identical_cold": True,
+           "warm_prefills": eng.warm_prefills,
+           "warm_prefill_logits_max_abs_err": err, "tol": 1e-3,
+           "launches_card": launches}
+    if err > 1e-3 or eng.warm_prefills != 1 or \
+            launches["paged_verify_attention"] == 0:
+        fail(f"spec parity: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------
 # phase 6: one periodic-async GRPO run at full width; phase 7: parity
 # ---------------------------------------------------------------------
 
@@ -624,6 +1035,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
         "spa_attention": L * (prefills + 3 * cap + 4 * rec),
         "spa_attention_bwd": L * (cap + rec),
         "paged_decode_attention": L * steps,
+        "paged_verify_attention": 0,           # spec and prefix are off
         "transfer_cast": n_leaves * publishes,
     }
     formula = {
@@ -631,6 +1043,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
                          f"{L}*({prefills} + 3*{cap} + 4*{rec})",
         "spa_attention_bwd": f"L*(captured + recomputed) = {L}*({cap} + {rec})",
         "paged_decode_attention": f"L*decode_steps = {L}*{steps}",
+        "paged_verify_attention": "0 (spec and prefix cache off)",
         "transfer_cast": f"leaves*publishes = {n_leaves}*{publishes}",
     }
     out = {
@@ -668,7 +1081,8 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
             not staged_ok:
         fail(f"train: pool leaves are not the bf16-rounded policy: {flips}, "
              f"staged {staged_ok}")
-    if launches != expect or 0 in expect.values():
+    if launches != expect or 0 in (v for k, v in expect.items()
+                                   if k != "paged_verify_attention"):
         fail(f"train: launches {launches} != expected {expect} ({formula})")
     if not all(bool(torch.isfinite(t).all())
                for t in _tree_leaves(tri.policy)):
@@ -794,6 +1208,8 @@ def main() -> None:
                                  ctx_max=1056))
         cases.append(decode_case(torch, timer, dev, gen, dtype, B=16,
                                  ctx_max=8192))
+        cases.append(verify_case(torch, timer, dev, gen, dtype, B=4, S=5,
+                                 ctx_max=1060))
         bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
                                       prompt=1024))
         bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
@@ -810,6 +1226,19 @@ def main() -> None:
                             ctx_max=TRAIN_PROMPT + TRAIN_RESP)
     cast = cast_cases(torch, timer, dev, gen, train_config())
     cases += [train_spa, train_dec]
+    # paged verify: the rollout engine's spec shape (f32), a suffix
+    # prefill, a windowed case; the contiguous-cache wrappers
+    spec_verify = cases[5]                    # bf16, B 4, S 5: phase 8's
+    cases += [
+        verify_case(torch, timer, dev, gen, "float32", B=8, S=SPEC_K + 1,
+                    ctx_max=TRAIN_PROMPT + TRAIN_RESP + SPEC_K),
+        verify_case(torch, timer, dev, gen, "bfloat16", B=1, S=512,
+                    ctx_max=1024, suffix=True),
+        verify_case(torch, timer, dev, gen, "bfloat16", B=4, S=SPEC_K + 1,
+                    ctx_max=1060, window=256),
+        contiguous_case(torch, timer, dev, gen, "bfloat16", verify=False),
+        contiguous_case(torch, timer, dev, gen, "bfloat16", verify=True),
+    ]
     bwd_cases.append(train_bwd)
     for c in cases + bwd_cases + [cast]:
         emit({"phase": "kernel", **c})
@@ -824,7 +1253,19 @@ def main() -> None:
         serve["layers"] * main_dec["ms"] / 1e3 / serve["tpot_p50_s"])
     emit(serve)
     emit(profile_decode(torch, np, eng, prompts, args.seed))
-    del eng, params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_eng, spec = spec_serve(torch, np, dev, params, prompts, args.seed)
+    emit(spec)
+    # the same two windows over spec steps (4 busy slots)
+    emit({**profile_decode(torch, np, spec_eng, prompts, args.seed),
+          "phase": "spec_profile", "spec_k": SPEC_K})
+    del spec_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(radix_serve(torch, np, dev, params, args.seed))
+    del params
     emit(reduced_parity(torch, np, dev, args.seed))
     gc.collect()
     torch.cuda.empty_cache()
@@ -833,6 +1274,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     emit(train_parity(torch, np, dev, args.seed))
+    emit(spec_parity(torch, np, dev, args.seed))
 
     # the training run's launches, each kernel timed at that run's shapes
     meta = {
@@ -848,14 +1290,26 @@ def main() -> None:
             "src/repro_torch/kernels/csrc/spa_attention_bwd.cu",
             "src/repro/kernels/spa_attention.py:104", train_bwd),
     }
-    emit({"kernels": [
+    row = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": train["launches"][name],
          "launches_serve": launches.get(name, 0),
          "max_abs_err": c["max_abs_err"], "ms": c["ms"],
          "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
          "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
-        for name, (src, rep, c) in meta.items()]})
+        for name, (src, rep, c) in meta.items()]
+    # the spec serving run's launches, timed at its shape (bf16, B 4, S 5)
+    row.append({
+        "name": "paged_verify_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_verify_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:262",
+        "launches": spec["launches"]["paged_verify_attention"],
+        "max_abs_err": spec_verify["max_abs_err"], "ms": spec_verify["ms"],
+        "plain_ms": spec_verify["plain_ms"],
+        "bound_ms": spec_verify["bound_ms"],
+        "bound_by": spec_verify["bound_by"],
+        "library_ms": spec_verify["library_ms"]})
+    emit({"kernels": row})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

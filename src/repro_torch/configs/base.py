@@ -69,12 +69,16 @@ _NOT_YET = "not ported to PyTorch yet (ROADMAP.md Queue 1)"
 
 def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
     """(supported, reason) for running ``cfg`` on ``engine`` in the port:
-    the paged engine serves the dense GQA family; the spec and prefix
-    planes and every other family wait for later slices."""
-    if engine == SPEC_PLANE:
-        return False, "speculative decode (draft/verify kernels) is " + _NOT_YET
-    if engine == PREFIX_PLANE:
-        return False, "the radix prefix cache is " + _NOT_YET
+    the paged engine serves the dense GQA family, and the spec and prefix
+    planes ride on it there; every other family waits for later slices."""
+    if engine in (SPEC_PLANE, PREFIX_PLANE):
+        ok, reason = engine_support(cfg, "paged")
+        if not ok:
+            return ok, reason
+        if engine == SPEC_PLANE:
+            return True, ("a rejected draft's speculative pages roll back "
+                          "to the freelist")
+        return True, "cached prompt pages are shared across requests"
     if engine not in ROLLOUT_ENGINES:
         raise KeyError(f"unknown engine {engine!r}; known: "
                        f"{ROLLOUT_ENGINES + (SPEC_PLANE, PREFIX_PLANE)}")
@@ -133,6 +137,17 @@ class RLConfig:
     cbatch_slots: int = 8              # decode slots per paged instance
     kv_page_size: int = 16             # tokens per KV page
     kv_pages: int = 0                  # physical pages (0 = auto-size)
+    # speculative decode on the paged engine: draft spec_k tokens with the
+    # prompt-lookup provider ("model", a resident draft model, is not
+    # ported), verify them in ONE k+1-token forward, accept by rejection
+    # sampling (distribution-exact: Proposition 1 holds)
+    spec_decode: bool = False
+    spec_k: int = 4                    # drafted tokens per verify step
+    spec_draft: str = "prompt_lookup"
+    spec_ngram: int = 3                # longest n-gram the lookup tries
+    # radix prefix cache on the paged engine: prompts sharing a token-span
+    # prefix share its cached pages and prefill only their suffix
+    prefix_cache: bool = False
     # rollout-time logprob capture: under Proposition 1 the captured values
     # are the old-policy logprobs, so the grad step runs one reference
     # forward instead of the stacked old+ref pair

@@ -135,7 +135,11 @@ class InferencePool:
     def engine_stats(self) -> dict:
         """Aggregated paged-engine counters (zeros without a paged engine),
         so callers can diff snapshots unconditionally."""
-        agg = {"decode_steps": 0, "generated_tokens": 0, "prefills": 0}
+        agg = {"decode_steps": 0, "generated_tokens": 0, "prefills": 0,
+               "warm_prefills": 0, "spec_steps": 0, "drafted_tokens": 0,
+               "accepted_tokens": 0, "rolled_back_pages": 0,
+               "prefix_hit_pages": 0, "prefix_miss_pages": 0,
+               "prefix_evicted_pages": 0}
         for inst in self.instances:
             if inst.paged_engine is not None:
                 for k, v in inst.paged_engine.stats_snapshot().items():

@@ -27,10 +27,25 @@ logits in hand, write its K/V into the pool, attend over its pages (the
 paged flash-decode kernel on CUDA), and compute the next logits; the
 host then reads the step's tokens once (``_drain_block``). A prompt is
 prefilled by ``forward_hidden`` over a dense temporary cache (the SPA
-kernel on CUDA) and spliced into its pages. This slice drains every step
-(the JAX engine's ``drain_interval=1``); sliding windows, speculative
-decode and the radix prefix cache are refused at construction through
-``require_engine_support``.
+kernel on CUDA) and spliced into its pages. The engine drains every step
+(the JAX engine's ``drain_interval=1``).
+
+Two planes layer on the pool:
+
+  * ``spec_k > 0``, speculative decode (``spec/``): each step drafts k
+    tokens per row, pre-allocates the block's speculative pages against
+    the row's credit, runs ONE k+1-token verify forward through the
+    paged-verify kernel, commits 1..k+1 tokens per row by rejection
+    sampling (``_spec_step``), and rolls pages that hold only rejected
+    drafts back to the freelist (``_rollback_row``);
+  * ``prefix_cache=True``, the radix prefix cache (``core/radix.py``):
+    admission walks the tree for the longest cached page-aligned prefix,
+    retains the matched pages into the group's table, prefills ONLY the
+    uncached suffix into private pages through the same multi-token paged
+    route (``_warm_prefill``), and inserts the complete prompt pages back;
+    idle cached pages are LRU-evicted by the admission gate on a deficit.
+
+Sliding windows are refused at construction (``require_engine_support``).
 """
 from __future__ import annotations
 
@@ -44,12 +59,15 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, require_engine_support
 from repro_torch.core.cbatch import Completed, SlotScheduler
+from repro_torch.core.radix import RadixCache
 from repro_torch.data.tokenizer import Tokenizer
 from repro_torch.models import forward_hidden, init_caches, init_paged_caches
 from repro_torch.models.attention import INVALID_POS, cache_streams
 from repro_torch.models.layers import lm_head_weight
 from repro_torch.rl.rollout import (Key, RolloutBatch, _sample_token_rows,
                                     row_generator, sampled_token_logprob)
+from repro_torch.spec import (commit_block, make_draft_provider,
+                              pack_row_block, truncate_commit, verify_block)
 
 NULL_PAGE = 0
 TRASH_PAGE = 1
@@ -61,7 +79,8 @@ class PageAllocator:
 
     Prompt pages are allocated with refcount G (one per group row) and
     release once per row at its completion; response pages are
-    single-owner."""
+    single-owner; the radix cache holds one more reference per cached
+    page."""
 
     def __init__(self, num_pages: int):
         if num_pages <= FIRST_PAGE:
@@ -78,6 +97,18 @@ class PageAllocator:
     def num_live(self) -> int:
         """Pages currently referenced (freelist + live == capacity)."""
         return len(self._ref)
+
+    def retain(self, pages: List[int], n: int = 1) -> None:
+        """Add ``n`` references to live pages: the radix cache shares a
+        cached prompt page into a group's table (one reference per row,
+        plus the tree's own at insert)."""
+        for p in pages:
+            if p not in self._ref:
+                raise RuntimeError(f"retain of dead page {p}")
+            self._ref[p] += n
+
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
 
     def alloc(self, n: int, refcount: int = 1) -> Optional[List[int]]:
         if len(self._free) < n:
@@ -112,6 +143,9 @@ class _Group:
     max_new: int
     prompt_pages: Optional[List[int]] = None
     prompt_logits: Optional[torch.Tensor] = None   # (V,) f32 on device
+    # radix match stashed by the admission gate for _admit_row: (m, pages),
+    # prompt page indices j0..m-1 already cached as ``pages``
+    match: Optional[tuple] = None
     # streaming delivery: on_token(row_idx, token_id) for every committed
     # token, in commit order (launch/serve.py RequestDriver)
     on_token: Optional[object] = None
@@ -129,6 +163,10 @@ class _Row:
     pages: list = dataclasses.field(default_factory=list)  # resp page k -> id
     credit: int = 0                  # future page allocations reserved
     gen: Optional[torch.Generator] = None   # sampling generator (None: greedy)
+    # spec decode: a fresh row still holds its prefill logits in hand; a
+    # steady row's last committed token is unfed and rides into the next
+    # verify block
+    fresh: bool = True
 
 
 @dataclasses.dataclass
@@ -180,13 +218,17 @@ class PagedGroupEngine:
                  group_size: int, temperature: float = 1.0, top_p: float = 1.0,
                  eos_id: int = Tokenizer.EOS, pad_id: int = Tokenizer.PAD,
                  capture_logprobs: bool = True, spec_k: int = 0,
+                 spec_draft: str = "prompt_lookup", spec_ngram: int = 3,
                  prefix_cache: bool = False, device="cuda"):
         if num_slots < 1 or page_size < 1:
             raise ValueError(f"paged engine needs num_slots >= 1 and "
                              f"page_size >= 1, got {num_slots}/{page_size}")
         require_engine_support(cfg, "paged")
+        self.spec_k = spec_k
         if spec_k:
             require_engine_support(cfg, "spec")
+            self._draft = make_draft_provider(spec_draft, cfg, num_slots,
+                                              spec_k=spec_k, ngram=spec_ngram)
         if prefix_cache:
             require_engine_support(cfg, "prefix")
         self.cfg = cfg
@@ -219,6 +261,8 @@ class PagedGroupEngine:
         self.logits = None           # (B, V) f32 per-slot next-token logits
         self._w_head = None          # (d, V) f32 LM head
         self.alloc = PageAllocator(num_pages)
+        self.radix = RadixCache(page_size, self.alloc) if prefix_cache \
+            else None
         self.sched = SlotScheduler(num_slots)
         self._ptab = np.zeros((num_slots, self.n_max), np.int32)  # NULL rows
         self._mutex = threading.RLock()
@@ -227,22 +271,76 @@ class PagedGroupEngine:
         self._outstanding = 0        # sum of row credits; free >= this always
         self.decode_steps = 0
         self.generated_tokens = 0
-        self.prefills = 0
+        self.prefills = 0            # cold prompt prefills (dense, SPA)
+        self.warm_prefills = 0       # radix suffix prefills (paged verify)
+        self.reset_spec_stats()
+        self.reset_prefix_stats()
+
+    def reset_spec_stats(self) -> None:
+        with self._mutex:   # counters race with step() from other threads
+            self.spec_steps = 0          # verify forwards x live rows
+            self.drafted_tokens = 0      # drafts proposed
+            self.accepted_tokens = 0     # drafts that survived verify
+            self.rolled_back_pages = 0   # speculative pages returned
+
+    def reset_prefix_stats(self) -> None:
+        with self._mutex:
+            self.prefix_hit_pages = 0       # prompt pages from the tree
+            self.prefix_miss_pages = 0      # prompt pages prefilled
+            self.prefix_inserted_pages = 0  # pages newly cached
+            self.prefix_evicted_pages = 0   # cached pages reclaimed
+
+    @property
+    def acceptance_rate(self) -> float:
+        with self._mutex:
+            return (self.accepted_tokens / self.drafted_tokens
+                    if self.drafted_tokens else 0.0)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of cacheable prompt pages served from the radix tree."""
+        with self._mutex:
+            tot = self.prefix_hit_pages + self.prefix_miss_pages
+            return self.prefix_hit_pages / tot if tot else 0.0
 
     def stats_snapshot(self) -> dict:
         """Atomic copy of the engine counters (one mutex hold)."""
         with self._mutex:
             return {"decode_steps": self.decode_steps,
                     "generated_tokens": self.generated_tokens,
-                    "prefills": self.prefills}
+                    "prefills": self.prefills,
+                    "warm_prefills": self.warm_prefills,
+                    "spec_steps": self.spec_steps,
+                    "drafted_tokens": self.drafted_tokens,
+                    "accepted_tokens": self.accepted_tokens,
+                    "rolled_back_pages": self.rolled_back_pages,
+                    "prefix_hit_pages": self.prefix_hit_pages,
+                    "prefix_miss_pages": self.prefix_miss_pages,
+                    "prefix_evicted_pages": self.prefix_evicted_pages}
 
     # -- page geometry ------------------------------------------------------
 
     def _row_budget(self, max_new: int) -> int:
         """Response pages a row writes over its whole decode — the page
         credit the admission gate reserves (no window: every written page
-        stays resident until the row finishes)."""
+        stays resident until the row finishes; spec positions past
+        ``max_new`` go to the trash page, so speculation adds none)."""
         return -(-max_new // self.page)
+
+    def _prompt_page_range(self, plen: int):
+        """(j0, n_pp): prompt pages j0..n_pp-1 are visible to the first
+        response query. Without a sliding window (the port refuses them,
+        ROADMAP Queue 1) every prompt page is, so j0 is 0."""
+        return 0, -(-plen // self.page)
+
+    def _suffix_bucket(self, n_sfx_pages: int) -> int:
+        """Pad a radix-miss suffix to a power-of-two page count (as the JAX
+        engine does to bound its traces): a warm hit still prefills
+        genuinely fewer tokens than a cold start."""
+        b = 1
+        while b < n_sfx_pages:
+            b *= 2
+        return min(b, self.n_prompt_pages)
 
     # -- device cores -------------------------------------------------------
 
@@ -293,6 +391,42 @@ class PagedGroupEngine:
                               caches=caches, cache_offset=wslots,
                               page_table=ptab)
         return tok, lp, h[:, 0].float() @ self._w_head
+
+    def _prefill_suffix(self, params, caches, tokens, positions, segs,
+                        wslots, ptab, last: int) -> torch.Tensor:
+        """Prefill ONLY a prompt's uncached suffix through the paged pool
+        (radix warm admission): the (1, S) block writes into the group's
+        private pages at its flat write slots while attending through the
+        page table, which already lists the matched cached pages, so the
+        suffix conditions on the shared prefix as a cold prefill would
+        (the S > 1 paged route: the paged-verify kernel on CUDA). Returns
+        the last real token's logits (V,) f32."""
+        h, _ = forward_hidden(params, self.cfg, tokens, positions=positions,
+                              segments=segs, caches=caches,
+                              cache_offset=wslots, page_table=ptab)
+        return h[0, last].float() @ self._w_head
+
+    def _verify_step(self, params, caches, logits, tokens, positions, segs,
+                     wslots, ptab, gens, fresh, draft):
+        """One k+1-token spec verify forward for every slot: the block (the
+        unfed committed token + k drafts, or k drafts + a masked pad slot
+        for fresh rows) writes into its speculative pages and attends
+        through the pool; fresh rows use their prefill logits as p_0.
+        Masked slots point at the trash page with pos 2^30. The commit walk
+        runs on the device (``commit_block``), so the step returns one
+        (B, k+1) commit buffer, its logprobs (or None) and (B,) counts."""
+        h, _ = forward_hidden(params, self.cfg, tokens, positions=positions,
+                              segments=segs, caches=caches,
+                              cache_offset=wslots, page_table=ptab)
+        out = h.float() @ self._w_head                         # (B, k+1, V)
+        p = torch.where(fresh[:, None, None],
+                        torch.cat([logits[:, None], out[:, :-1]], dim=1),
+                        out)
+        accept, alt, lp_d, lp_a = verify_block(
+            p, draft, gens, temperature=self.temperature, top_p=self.top_p,
+            capture=self.capture_logprobs)
+        toks, lps, count = commit_block(accept, alt, draft, lp_d, lp_a)
+        return toks, (lps if self.capture_logprobs else None), count
 
     def _invalidate_pages(self, pages: List[int]) -> None:
         """Mark freshly allocated response pages invalid — they may hold a
@@ -368,37 +502,115 @@ class PagedGroupEngine:
         return (self.P - FIRST_PAGE) - self.alloc.min_free
 
     def reset_stats(self) -> None:
-        with self._mutex:
+        with self._mutex:   # RLock: the nested resets re-enter
             self.decode_steps = 0
             self.generated_tokens = 0
             self.prefills = 0
+            self.warm_prefills = 0
             self.alloc.min_free = self.alloc.num_free
+            self.reset_spec_stats()
+            self.reset_prefix_stats()
 
     # -- engine step --------------------------------------------------------
 
     def _admission_gate(self, row: _Row) -> bool:
         """The freelist must cover this row's response pages (and, for a
-        group's first row, its prompt pages) ON TOP of every admitted row's
-        outstanding credit."""
-        need = self._row_budget(row.group.max_new)
-        if row.group.prompt_pages is None:
-            need += -(-len(row.group.prompt) // self.page)
-        return self.alloc.num_free - self._outstanding >= need
+        group's first row, its uncached prompt pages) ON TOP of every
+        admitted row's outstanding credit.
+
+        With the radix cache, matched pages cost nothing (they are
+        retained, not allocated; the gate stashes the match on the group
+        for ``_admit_row``, which runs right after it under the mutex), and
+        a deficit first evicts idle cached pages."""
+        g = row.group
+        need = self._row_budget(g.max_new)
+        mpages = []
+        if g.prompt_pages is None:
+            j0, n_pp = self._prompt_page_range(len(g.prompt))
+            m = j0
+            if self.radix is not None:
+                m, mpages = self.radix.lookup(g.prompt, j0=j0)
+                g.match = (m, mpages)
+            need += n_pp - m
+        free = self.alloc.num_free - self._outstanding
+        if free < need and self.radix is not None:
+            evicted = self.radix.evict(need - free, protect=set(mpages))
+            self.prefix_evicted_pages += len(evicted)
+            free = self.alloc.num_free - self._outstanding
+        return free >= need
+
+    def _warm_prefill(self, g: _Group, m: int, new: List[int],
+                      j0: int, n_pp: int) -> None:
+        """Prefill a radix-hit prompt's uncached tail (page indices
+        ``m..n_pp-1``) into its freshly allocated private pages ``new``,
+        attending through the matched cached pages via the group's page
+        table. The block is padded to a power-of-two page count
+        (``_suffix_bucket``); pad slots are masked (segment -1) and write
+        to the trash page, never into a live page."""
+        page = self.page
+        m_tok = m * page
+        sfx = g.prompt[m_tok:]
+        S = max(2, self._suffix_bucket(len(new)) * page)
+        ar = np.arange(S)
+        real = ar < len(sfx)
+        toks = np.full((1, S), self.pad_id, np.int64)
+        toks[0, : len(sfx)] = sfx
+        pos = np.where(real, m_tok + ar, 0).astype(np.int32)[None]
+        segs = np.where(real, 0, -1).astype(np.int32)[None]
+        wsl = np.full((1, S), TRASH_PAGE * page, np.int64)
+        for t in range(len(sfx)):
+            a = m_tok + t
+            wsl[0, t] = new[a // page - m] * page + a % page
+        tab = np.zeros((1, self.n_max), np.int32)
+        tab[0, : n_pp - j0] = g.prompt_pages
+        # fresh pages may hold a previous sequence's stale (pos, kv)
+        self._invalidate_pages(new)
+        g.prompt_logits = self._prefill_suffix(
+            self.params, self.caches, self._to_device(toks),
+            self._to_device(pos), self._to_device(segs),
+            self._to_device(wsl), self._to_device(tab), len(sfx) - 1)
 
     def _admit_row(self, slot: int, row: _Row) -> None:
         g = row.group
         if g.prompt_pages is None:
-            n_pp = -(-len(g.prompt) // self.page)
-            pages = self.alloc.alloc(n_pp, refcount=g.G)
-            assert pages is not None, \
-                "admission gate let a row in without pages for its prompt"
-            g.prompt_pages = pages
-            row_arr = np.full((1, n_pp * self.page), self.pad_id, np.int64)
-            row_arr[0, : len(g.prompt)] = g.prompt
-            g.prompt_logits = self._prefill_group(
-                self.params, self.caches, self._to_device(row_arr),
-                len(g.prompt), self._to_device(np.asarray(pages, np.int64)))
-            self.prefills += 1
+            j0, n_pp = self._prompt_page_range(len(g.prompt))
+            m, mpages = g.match if g.match is not None else (j0, [])
+            g.match = None
+            if m > j0:
+                # radix warm start: the matched cached pages join the
+                # group's table with one reference per row; only the
+                # uncached suffix is prefilled, into private pages
+                self.alloc.retain(mpages, n=g.G)
+                new = self.alloc.alloc(n_pp - m, refcount=g.G)
+                assert new is not None, "admission gate let a row in " \
+                    "without pages for its prompt suffix"
+                g.prompt_pages = list(mpages) + new
+                self.prefix_hit_pages += m - j0
+                self.prefix_miss_pages += n_pp - m
+                self._warm_prefill(g, m, new, j0, n_pp)
+                self.warm_prefills += 1
+            else:
+                pages = self.alloc.alloc(n_pp - j0, refcount=g.G)
+                assert pages is not None, \
+                    "admission gate let a row in without pages for its prompt"
+                g.prompt_pages = pages
+                if self.radix is not None:
+                    self.prefix_miss_pages += n_pp - j0
+                row_arr = np.full((1, n_pp * self.page), self.pad_id,
+                                  np.int64)
+                row_arr[0, : len(g.prompt)] = g.prompt
+                g.prompt_logits = self._prefill_group(
+                    self.params, self.caches, self._to_device(row_arr),
+                    len(g.prompt),
+                    self._to_device(np.asarray(pages, np.int64)))
+                self.prefills += 1
+            if self.radix is not None:
+                # cache every COMPLETE prompt page, cold and warm alike
+                # (insert skips spans already cached); a trailing partial
+                # page is row-private and never enters the tree
+                self.prefix_inserted_pages += self.radix.insert(
+                    g.prompt, {j: g.prompt_pages[j - j0]
+                               for j in range(j0, len(g.prompt) // self.page)})
         row.pages = []
         row.credit = self._row_budget(g.max_new)
         self._outstanding += row.credit
@@ -408,12 +620,20 @@ class PagedGroupEngine:
         self.logits[slot] = g.prompt_logits
         row.toks = []
         row.lps = []
+        row.fresh = True
         row.gen = (row_generator(g.key, row.idx, self.device)
                    if self.temperature > 0 else None)
+        if self.spec_k:
+            self._draft.start(slot, g.prompt)
 
     def _alloc_resp_page(self, slot: int, row: _Row, k: int) -> int:
-        """Lazily take response page k (the write cursor just crossed a
-        page boundary) out of the row's reserved credit."""
+        """Lazily take response page k (the write cursor, or a spec block's
+        speculative write, just crossed a page boundary) out of the row's
+        reserved credit. The credit stays symmetric until the row
+        finishes: allocation takes one, ``_rollback_row`` gives one back,
+        and nothing returns credit early (without a window the budget is
+        exactly the pages the row can write, and a speculative last page
+        may be rolled back and taken again)."""
         g = row.group
         assert row.credit > 0, "page-credit invariant violated: row " \
             "admitted without budget for its next page"
@@ -425,6 +645,25 @@ class PagedGroupEngine:
         row.pages.append(pid)
         self._ptab[slot, len(g.prompt_pages) + k] = pid
         return pid
+
+    def _rollback_row(self, slot: int, row: _Row, vf_rp: int) -> None:
+        """Return speculative response pages holding ONLY rejected drafts
+        to the freelist: after a commit that fed through response position
+        ``vf_rp``, a page whose first slot is past it holds nothing a
+        present or future query may see. Pop it off the row's table,
+        release it and re-arm the row's credit (the exact inverse of
+        ``_alloc_resp_page``). Partially valid pages stay: their stale
+        tail slots are overwritten by the next verify block before any
+        query reads them."""
+        keep = vf_rp // self.page if vf_rp >= 0 else -1
+        base = len(row.group.prompt_pages)
+        while len(row.pages) - 1 > keep:
+            pid = row.pages.pop()
+            self._ptab[slot, base + len(row.pages)] = NULL_PAGE
+            self.alloc.release([pid])
+            row.credit += 1
+            self._outstanding += 1
+            self.rolled_back_pages += 1
 
     def _finish_row(self, slot: int, row: _Row, step: int) -> None:
         g = row.group
@@ -458,8 +697,9 @@ class PagedGroupEngine:
             h._event.set()
 
     def step(self) -> bool:
-        """One admission pass + one decode step for every slot, drained
-        before returning. Returns False (and does nothing) when idle."""
+        """One admission pass + one decode step for every slot (a spec
+        engine verifies a k+1-token block instead), drained before
+        returning. Returns False (and does nothing) when idle."""
         with self._mutex:
             # admit one row at a time: _admit_row consumes pages, and the
             # gate must see the freelist as it actually is for the NEXT row
@@ -469,6 +709,8 @@ class PagedGroupEngine:
                     break
                 self._admit_row(*admitted[0])
             act = self.sched.active_slots()
+            if self.spec_k:
+                return self._spec_step(act) if act else False
             blk = self._dispatch_block(act) if act else None
             if blk is not None:
                 self._drain_block(blk)
@@ -524,6 +766,100 @@ class PagedGroupEngine:
                 g.on_token(row.idx, tv)
             if tv == self.eos_id or len(row.toks) >= g.max_new:
                 self._finish_row(s, row, blk.base + 1)
+
+    # -- spec plane ---------------------------------------------------------
+
+    def _spec_step(self, act: List[int]) -> bool:
+        """One spec-decode step under the mutex, ``act`` the live slots:
+        draft k tokens per row, pre-allocate the block's speculative pages
+        against the row credits, run ONE k+1-token verify forward whose
+        device-side commit walk yields 1..k+1 tokens per row, then commit
+        them and roll rejected speculative pages back (one frame below)."""
+        B, k, page = self.B, self.spec_k, self.page
+        drafts = self._draft.propose(act, k)
+        tokens = np.full((B, k + 1), self.pad_id, np.int64)
+        positions = np.full((B, k + 1), INVALID_POS, np.int32)
+        segs = np.full((B, k + 1), -1, np.int32)
+        wslots = np.full((B, k + 1), TRASH_PAGE * page, np.int64)
+        fresh_m = np.zeros((B,), bool)
+        gens: List[Optional[torch.Generator]] = [None] * B
+        fresh_pages = []
+        for s in act:
+            row = self.sched.slot_req[s]
+            g = row.group
+            rc = len(row.toks)
+            delta = pack_row_block(tokens[s], positions[s], segs[s],
+                                   row.fresh, drafts[s],
+                                   row.toks[-1] if rc else self.pad_id,
+                                   len(g.prompt) + rc, k)
+            for j in range(k + 1):
+                rp = rc + delta + j
+                if segs[s, j] != 0 or rp >= g.max_new:
+                    # a fresh row's pad slot, or a position past max_new:
+                    # masked, written to the trash page
+                    tokens[s, j] = self.pad_id
+                    positions[s, j] = INVALID_POS
+                    segs[s, j] = -1
+                    continue
+                while rp // page >= len(row.pages):
+                    fresh_pages.append(
+                        self._alloc_resp_page(s, row, len(row.pages)))
+                wslots[s, j] = row.pages[rp // page] * page + rp % page
+            gens[s] = row.gen
+            fresh_m[s] = row.fresh
+        if fresh_pages:
+            self._invalidate_pages(fresh_pages)
+        ctoks, clps, count = self._verify_step(
+            self.params, self.caches, self.logits, self._to_device(tokens),
+            self._to_device(positions), self._to_device(segs),
+            self._to_device(wslots), self._to_device(self._ptab), gens,
+            self._to_device(fresh_m), self._to_device(drafts))
+        self._commit_spec_rows(act, ctoks, clps, count)
+        return True
+
+    def _drain_verify(self, ctoks, clps, count):
+        """Read one verify block's commit buffers back — the ONLY
+        device->host read of the spec path, one frame below the hot
+        ``_spec_step``: one (B, k+1) token list (and logprob list) and the
+        (B,) counts per step."""
+        return (ctoks.tolist(), clps.tolist() if clps is not None else None,
+                count.tolist())
+
+    def _commit_spec_rows(self, act, ctoks, clps, count) -> None:
+        """Commit one verify block's rows on the host: cap each row at its
+        budget and first EOS, stream and record the tokens, feed them to
+        the draft, finish rows that stopped, and roll back speculative
+        pages past every other row's fed frontier."""
+        k = self.spec_k
+        ctoks, clps, count = self._drain_verify(ctoks, clps, count)
+        step = self.sched.tick()
+        self.decode_steps += 1
+        for s in act:
+            row = self.sched.slot_req[s]
+            g = row.group
+            rc = len(row.toks)
+            n = count[s]
+            self.spec_steps += 1
+            self.drafted_tokens += k
+            self.accepted_tokens += n - 1
+            ct, cl, row_done = truncate_commit(
+                ctoks[s][:n], clps[s][:n] if clps is not None else [0.0] * n,
+                g.max_new - rc, self.eos_id)
+            row.toks.extend(ct)
+            if self.capture_logprobs:
+                row.lps.extend(cl)
+            if g.on_token is not None:
+                for tv in ct:
+                    g.on_token(row.idx, tv)
+            self._draft.commit(s, ct)
+            self.generated_tokens += len(ct)
+            row.fresh = False
+            if row_done:
+                self._finish_row(s, row, step)
+                self._draft.stop(s)
+            else:
+                # the cache now holds every committed token but the last
+                self._rollback_row(s, row, len(row.toks) - 2)
 
     # -- standalone serving -------------------------------------------------
 

@@ -269,6 +269,8 @@ class PeriodicAsyncScheduler:
                 self._finish_iteration(acc)
                 wall = time.perf_counter() - it_start
                 engine1 = pool.engine_stats()
+                d = {k: engine1[k] - engine0[k] for k in engine1}
+                probes = d["prefix_hit_pages"] + d["prefix_miss_pages"]
                 stats = IterationStats(
                     iteration=start + t, wall_time=wall,
                     infer_time=pool.busy_time - busy0,
@@ -279,10 +281,16 @@ class PeriodicAsyncScheduler:
                     tpspd=trained_tokens / wall,      # one card
                     max_staleness=self.monitor.max_staleness_seen,
                     # boundary sync-gap: time the pool sat idle waiting for
-                    # this iteration's weight flip; and the engine counters
-                    # of the iteration (zero without a paged engine)
-                    metrics={"sync_gap": self.transfer.last_gap,
-                             **{k: engine1[k] - engine0[k] for k in engine1}})
+                    # this iteration's weight flip; the engine counters of
+                    # the iteration (zero without a paged engine) and the
+                    # spec acceptance and prefix hit rate they give
+                    metrics={"sync_gap": self.transfer.last_gap, **d,
+                             "spec_acceptance": (
+                                 d["accepted_tokens"] / d["drafted_tokens"]
+                                 if d["drafted_tokens"] else 0.0),
+                             "prefix_hit_rate": (
+                                 d["prefix_hit_pages"] / probes
+                                 if probes else 0.0)})
                 self.history.append(stats)
                 consumed_upto = t + 1
         except BaseException:

@@ -1,16 +1,27 @@
-"""Flash decode over a paged KV pool (one new query token per row).
+"""Flash attention of new tokens against a KV cache: one query per row
+(decode) or S queries per row, each masked by its own position (the
+spec-decode verify block and the radix cache's suffix prefill).
 
-``paged_decode_attention`` launches the CUDA kernel
-``csrc/paged_decode_attention.cu`` for CUDA tensors, which walks each row's
-page table inside the kernel; CPU tensors take
-``paged_decode_attention_plain``, which gathers each row's pages into a
-contiguous context and runs the plain attention. It replaces the Pallas
-TPU kernel ``paged_decode_attention`` of
-``src/repro/kernels/decode_attention.py``.
+Two CUDA kernels serve four wrappers:
+
+  * ``paged_decode_attention`` launches ``csrc/paged_decode_attention.cu``
+    (one query per row over the page pool);
+  * ``paged_verify_attention`` launches ``csrc/paged_verify_attention.cu``
+    (S queries per row over the page pool);
+  * ``decode_attention`` and ``verify_attention`` take a contiguous
+    (B, L, Hkv, D) cache and launch the same two kernels through a
+    zero-copy view of it as a pool: one page of length L per row, the
+    positions as that page's positions, and row b's table [b].
+
+Each kernel walks the row's page table itself. CPU tensors take the plain
+versions (``*_plain``), which gather each row's pages into a contiguous
+context and run the plain attention. They replace the Pallas TPU kernels of
+``src/repro/kernels/decode_attention.py`` of the same names.
 
 Mask: ``kv_pos <= q_pos`` (optionally windowed). The null page 0 and every
-unwritten slot carry pos 2^30, so they are masked for live rows; a row
-with no visible key returns 0 in both versions.
+unwritten slot carry pos 2^30, so they are masked for live tokens; a token
+at pos 2^30 sees every slot, in both versions and in JAX. A query with no
+visible key returns 0 in both versions (JAX averages the masked values).
 """
 from __future__ import annotations
 
@@ -24,11 +35,14 @@ from repro_torch.kernels.spa_attention import chunked_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_GMAX = 8     # query heads per KV head the kernel handles in one block
+_GMAX = 8     # query heads per KV head the decode kernel handles in a block
 # q, k_pages, v_pages, pos_pages, page_table, q_pos, out; B, H, Hkv, D, page,
 # n_max, dtype, window; scale; stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                         ctypes.c_void_p]
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_void_p]
+# the same with S after B
+_VERIFY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def gather_pages(k_pages, v_pages, pos_pages, page_table):
@@ -42,61 +56,94 @@ def gather_pages(k_pages, v_pages, pos_pages, page_table):
     return k, v, pos_pages[idx].reshape(B, n_max * page)
 
 
+def verify_attention_plain(q, k, v, kv_pos, q_pos, *,
+                           scale: Optional[float] = None,
+                           window: Optional[int] = None):
+    """Plain version over a contiguous cache: q (B, S, H, D), k/v (B, L,
+    Hkv, D), kv_pos (B, L), q_pos (B, S); segments play no part."""
+    return chunked_attention(q, k, v, q_pos, kv_pos, torch.zeros_like(q_pos),
+                             torch.zeros_like(kv_pos), window=window,
+                             scale=scale)
+
+
+def decode_attention_plain(q, k, v, kv_pos, q_pos, *,
+                           scale: Optional[float] = None,
+                           window: Optional[int] = None):
+    """Plain version of one query per row: q (B, H, D), q_pos (B,)."""
+    return verify_attention_plain(q[:, None], k, v, kv_pos, q_pos[:, None],
+                                  scale=scale, window=window)[:, 0]
+
+
+def paged_verify_attention_plain(q, k_pages, v_pages, pos_pages, page_table,
+                                 q_pos, *, scale: Optional[float] = None,
+                                 window: Optional[int] = None):
+    """Plain version: gather the pages, then masked attention of S queries
+    per row, each at its own position."""
+    k, v, kv_pos = gather_pages(k_pages, v_pages, pos_pages, page_table)
+    return verify_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
+                                  window=window)
+
+
 def paged_decode_attention_plain(q, k_pages, v_pages, pos_pages, page_table,
                                  q_pos, *, scale: Optional[float] = None,
                                  window: Optional[int] = None):
     """Plain version: gather the pages, then masked attention of one query
-    per row (segments play no part in decode)."""
+    per row."""
     k, v, kv_pos = gather_pages(k_pages, v_pages, pos_pages, page_table)
-    qp = q_pos[:, None]
-    out = chunked_attention(q[:, None], k, v, qp, kv_pos,
-                            torch.zeros_like(qp), torch.zeros_like(kv_pos),
-                            window=window, scale=scale)
-    return out[:, 0]
+    return decode_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
+                                  window=window)
 
 
-def _check_cuda(q, k_pages, v_pages, pos_pages, page_table, q_pos, window):
-    B, H, D = q.shape
+def _check_cuda(name, q, k_pages, v_pages, pos_pages, page_table, q_pos,
+                window, gmax=None):
+    """The kernels' input contract; q is (B, [S,] H, D), q_pos (B, [S])."""
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     if k_pages.shape != v_pages.shape or k_pages.dim() != 4:
-        raise ValueError(f"paged_decode_attention: k/v pages must be "
-                         f"(P, page, Hkv, D), got {tuple(k_pages.shape)}/"
-                         f"{tuple(v_pages.shape)}")
+        raise ValueError(f"{name}: k/v pages must be (P, page, Hkv, D), got "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
     P, page, Hkv, Dk = k_pages.shape
     if Dk != D or D not in _HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention kernel takes head_dim in "
-                         f"{_HEAD_DIMS} with Dv == Dk, got q {D}, pages {Dk}")
-    if H % Hkv or H // Hkv > _GMAX:
-        raise ValueError(f"paged_decode_attention kernel takes H % Hkv == 0 "
-                         f"and at most {_GMAX} query heads per KV head, got "
+        raise ValueError(f"{name} kernel takes head_dim in {_HEAD_DIMS} with "
+                         f"Dv == Dk, got q {D}, pages {Dk}")
+    if H % Hkv or (gmax is not None and H // Hkv > gmax):
+        limit = "" if gmax is None else f" and at most {gmax} query heads " \
+            "per KV head"
+        raise ValueError(f"{name} kernel takes H % Hkv == 0{limit}, got "
                          f"H={H}, Hkv={Hkv}")
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
-        raise TypeError(f"paged_decode_attention kernel takes float32 or "
-                        f"bfloat16 of one dtype, got {q.dtype}/"
-                        f"{k_pages.dtype}/{v_pages.dtype}")
-    for name, t, shape in (("pos_pages", pos_pages, (P, page)),
-                           ("page_table", page_table, (B, page_table.shape[-1])),
-                           ("q_pos", q_pos, (B,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise TypeError(f"paged_decode_attention: {name} must be int32 "
-                            f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 of one "
+                        f"dtype, got {q.dtype}/{k_pages.dtype}/"
+                        f"{v_pages.dtype}")
     if page_table.dim() != 2:
-        raise TypeError("paged_decode_attention: page_table must be (B, n_max)")
+        raise TypeError(f"{name}: page_table must be (B, n_max)")
+    for arg, t, shape in (("pos_pages", pos_pages, (P, page)),
+                          ("page_table", page_table,
+                           (B, page_table.shape[-1])),
+                          ("q_pos", q_pos, tuple(q.shape[:-2]))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise TypeError(f"{name}: {arg} must be int32 {shape}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
     for t in (q, k_pages, v_pages, pos_pages, page_table, q_pos):
         if t.device != q.device:
-            raise ValueError("paged_decode_attention: all inputs must be on "
-                             "one device")
+            raise ValueError(f"{name}: all inputs must be on one device")
         if not t.is_contiguous():
-            raise ValueError("paged_decode_attention kernel takes contiguous "
-                             "inputs")
+            raise ValueError(f"{name} kernel takes contiguous inputs")
     for t in (k_pages, v_pages):
         if t.data_ptr() % 16:
-            raise ValueError("paged_decode_attention kernel reads K/V pages 16 "
-                             "bytes at a time: their storage must be 16-byte "
-                             "aligned")
+            raise ValueError(f"{name} kernel reads K/V pages 16 bytes at a "
+                             f"time: their storage must be 16-byte aligned")
     if window is not None and window <= 0:
-        raise ValueError(f"paged_decode_attention: window must be positive, "
-                         f"got {window}")
+        raise ValueError(f"{name}: window must be positive, got {window}")
+
+
+def _device_route(name, q) -> bool:
+    """True: launch the kernel (CUDA); False: run the plain version (CPU)."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    return True
 
 
 def paged_decode_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos,
@@ -107,25 +154,86 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos,
     int32. Returns (B, H, D) in q.dtype.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    if q.device.type == "cpu":
+    name = "paged_decode_attention"
+    if not _device_route(name, q):
         return paged_decode_attention_plain(q, k_pages, v_pages, pos_pages,
                                             page_table, q_pos, scale=scale,
                                             window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for device "
-                         f"{q.device}")
-    _check_cuda(q, k_pages, v_pages, pos_pages, page_table, q_pos, window)
+    _check_cuda(name, q, k_pages, v_pages, pos_pages, page_table, q_pos,
+                window, gmax=_GMAX)
     B, H, D = q.shape
     page, Hkv = k_pages.shape[1], k_pages.shape[2]
-    n_max = page_table.shape[1]
     scale = D ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    launch = build.entry("paged_decode_attention",
-                         "paged_decode_attention_launch", _ARGTYPES)
+    launch = build.entry(name, "paged_decode_attention_launch",
+                         _DECODE_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     launch(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
            build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
-           build.ptr(out), B, H, Hkv, D, page, n_max, _DTYPES[q.dtype],
-           window or 0, scale, ctypes.c_void_p(stream))
-    count_launch("paged_decode_attention")
+           build.ptr(out), B, H, Hkv, D, page, page_table.shape[1],
+           _DTYPES[q.dtype], window or 0, scale, ctypes.c_void_p(stream))
+    count_launch(name)
     return out
+
+
+def paged_verify_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos,
+                           *, scale: Optional[float] = None,
+                           window: Optional[int] = None):
+    """q: (B, S, H, D), the S tokens already written into the pool;
+    k_pages/v_pages: (P, page, Hkv, D); pos_pages: (P, page) int32;
+    page_table: (B, n_max) int32; q_pos: (B, S) int32, each token's own
+    position. Returns (B, S, H, D) in q.dtype.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    name = "paged_verify_attention"
+    if not _device_route(name, q):
+        return paged_verify_attention_plain(q, k_pages, v_pages, pos_pages,
+                                            page_table, q_pos, scale=scale,
+                                            window=window)
+    _check_cuda(name, q, k_pages, v_pages, pos_pages, page_table, q_pos,
+                window)
+    B, S, H, D = q.shape
+    page, Hkv = k_pages.shape[1], k_pages.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    launch = build.entry(name, "paged_verify_attention_launch",
+                         _VERIFY_ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    launch(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
+           build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
+           build.ptr(out), B, S, H, Hkv, D, page, page_table.shape[1],
+           _DTYPES[q.dtype], window or 0, scale, ctypes.c_void_p(stream))
+    count_launch(name)
+    return out
+
+
+def _as_pool(k, v, kv_pos):
+    """A contiguous (B, L, Hkv, D) cache as a pool of B pages of length L,
+    without a copy: row b's table is [b]."""
+    table = torch.arange(k.shape[0], dtype=torch.int32,
+                         device=k.device)[:, None]
+    return k, v, kv_pos, table
+
+
+def decode_attention(q, k, v, kv_pos, q_pos, *, scale: Optional[float] = None,
+                     window: Optional[int] = None):
+    """q: (B, H, D) one token per row; k/v: (B, L, Hkv, D); kv_pos: (B, L)
+    int32; q_pos: (B,) int32. Returns (B, H, D). CUDA tensors launch the
+    paged decode kernel on the cache viewed as a pool."""
+    if not _device_route("decode_attention", q):
+        return decode_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
+                                      window=window)
+    return paged_decode_attention(q, *_as_pool(k, v, kv_pos), q_pos,
+                                  scale=scale, window=window)
+
+
+def verify_attention(q, k, v, kv_pos, q_pos, *, scale: Optional[float] = None,
+                     window: Optional[int] = None):
+    """q: (B, S, H, D); k/v: (B, L, Hkv, D); kv_pos: (B, L) int32; q_pos:
+    (B, S) int32. Returns (B, S, H, D). CUDA tensors launch the paged
+    verify kernel on the cache viewed as a pool."""
+    if not _device_route("verify_attention", q):
+        return verify_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
+                                      window=window)
+    return paged_verify_attention(q, *_as_pool(k, v, kv_pos), q_pos,
+                                  scale=scale, window=window)

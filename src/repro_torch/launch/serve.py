@@ -6,10 +6,16 @@ explicit trace), steps the engine, and records every streamed token's
 time, from which the latency metrics serving systems quote are computed —
 time-to-first-token (TTFT) and time-per-output-token (TPOT), p50/p99.
 
+``--spec`` turns on speculative decode (prompt-lookup drafts verified in
+one k+1-token forward), ``--prefix-cache`` the radix prefix cache, and
+``--shared-system N`` serves N requests that share one system prompt
+through the cache (``serve_shared``).
+
 Usage (full-width llama3.2-3b on the GPU; ``--device cpu --reduced`` for
 the 2-layer f32 variant on the CPU):
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
-        --num-requests 8 --max-new 24 --slots 4 [--rate 4.0]
+        --num-requests 8 --max-new 24 --slots 4 [--rate 4.0] \\
+        [--spec --spec-k 4] [--prefix-cache] [--shared-system 8]
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+from repro_torch.core.cbatch import Completed
 from repro_torch.core.paged import FIRST_PAGE, PagedGroupEngine
 from repro_torch.data.tasks import ArithmeticTask
 from repro_torch.data.tokenizer import Tokenizer
@@ -151,34 +158,64 @@ class RequestDriver:
 
 def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
                        num_slots: int = 4, page_size: int = 16,
-                       temperature: float = 0.7, device="cuda"):
+                       temperature: float = 0.7, spec_k: int = 0,
+                       spec_draft: str = "prompt_lookup",
+                       prefix_cache: bool = False, extra_pages: int = 0,
+                       device="cuda"):
     """One serving-shaped paged engine (group_size=1, no logprob capture):
-    enough pages for every slot to hold a full prompt + response."""
+    enough pages for every slot to hold a full prompt + response, plus
+    ``extra_pages``, plus (with the prefix cache) one prompt's pages of
+    headroom so a cached prompt can stay resident."""
     if num_slots < 1 or page_size < 1:
         raise ValueError(f"serving needs num_slots >= 1 and "
                          f"page_size >= 1, got {num_slots}/{page_size}")
     n_pp = -(-max_prompt_len // page_size)
     n_rp = -(-max_new // page_size)
+    pages = FIRST_PAGE + num_slots * (n_pp + n_rp) + extra_pages
+    if prefix_cache:
+        pages += n_pp
     return PagedGroupEngine(cfg, num_slots=num_slots, page_size=page_size,
-                            num_pages=FIRST_PAGE + num_slots * (n_pp + n_rp),
-                            max_prompt_len=max_prompt_len,
+                            num_pages=pages, max_prompt_len=max_prompt_len,
                             max_new_tokens=max_new, group_size=1,
                             temperature=temperature,
                             capture_logprobs=False,   # serving: no consumer
-                            device=device)
+                            spec_k=spec_k, spec_draft=spec_draft,
+                            prefix_cache=prefix_cache, device=device)
+
+
+def serving_stats(eng, generated_tokens: int) -> dict:
+    """The serving stats of an engine's run: decode steps and peak pages,
+    and with spec on the acceptance rate and tokens per per-row verify
+    forward (1.0 = no gain, up to k+1), with the radix cache its hit
+    rate and pages."""
+    stats = {"decode_steps": eng.decode_steps,
+             "peak_pages": eng.peak_pages_used}
+    if eng.spec_k:
+        stats.update(spec_k=eng.spec_k, acceptance_rate=eng.acceptance_rate,
+                     tokens_per_forward=(generated_tokens / eng.spec_steps
+                                         if eng.spec_steps else 0.0),
+                     rolled_back_pages=eng.rolled_back_pages)
+    if eng.radix is not None:
+        stats.update(prefix_hit_rate=eng.prefix_hit_rate,
+                     prefix_hit_pages=eng.prefix_hit_pages,
+                     prefix_miss_pages=eng.prefix_miss_pages,
+                     prefix_evicted_pages=eng.prefix_evicted_pages)
+    return stats
 
 
 def serve_paged(cfg, prompts, *, max_prompt_len: int, max_new: int,
                 num_slots: int = 4, page_size: int = 16,
-                temperature: float = 0.7, seed: int = 0, device="cuda",
-                params=None):
+                temperature: float = 0.7, seed: int = 0, spec_k: int = 0,
+                spec_draft: str = "prompt_lookup", prefix_cache: bool = False,
+                device="cuda", params=None):
     """Serve independent requests through the paged engine as one batch
     (each request its own 1-row group); returns (completions in completion
     order, stats)."""
     eng = build_paged_engine(cfg, max_prompt_len=max_prompt_len,
                              max_new=max_new, num_slots=num_slots,
                              page_size=page_size, temperature=temperature,
-                             device=device)
+                             spec_k=spec_k, spec_draft=spec_draft,
+                             prefix_cache=prefix_cache, device=device)
     if params is None:
         params = init(cfg, seed=seed, device=eng.device)
     t0 = time.time()
@@ -186,13 +223,63 @@ def serve_paged(cfg, prompts, *, max_prompt_len: int, max_new: int,
     wall = time.time() - t0
     toks = sum(len(c.response_ids) for c in done)
     return done, {"wall_s": wall, "generated_tokens": toks,
-                  "tok_per_s": toks / wall, "decode_steps": eng.decode_steps,
-                  "peak_pages": eng.peak_pages_used}
+                  "tok_per_s": toks / wall, **serving_stats(eng, toks)}
+
+
+def serve_shared(cfg, system_prompt, suffixes, *, max_prompt_len: int,
+                 max_new: int, page_size: int = 16, temperature: float = 0.7,
+                 seed: int = 0, spec_k: int = 0,
+                 spec_draft: str = "prompt_lookup", device="cuda",
+                 params=None, engine=None):
+    """Serve N requests that share one system prompt through the radix
+    prefix cache: each request submits its FULL prompt (system + its own
+    suffix) as a 1-row group; the first admission prefills the system
+    pages cold and inserts them into the tree, every later request retains
+    them and prefills only its own suffix into private pages.
+
+    Returns (completions in request order, stats incl. the prompt pages
+    the cache served in place of a prefill)."""
+    N = len(suffixes)
+    if engine is None:
+        full = max(len(system_prompt) + len(s) for s in suffixes)
+        engine = build_paged_engine(
+            cfg, max_prompt_len=max(max_prompt_len, full), max_new=max_new,
+            num_slots=N, page_size=page_size, temperature=temperature,
+            spec_k=spec_k, spec_draft=spec_draft, prefix_cache=True,
+            device=device)
+    if engine.radix is None:
+        raise ValueError("serve_shared needs an engine built with "
+                         "prefix_cache=True")
+    if params is None:
+        params = init(cfg, seed=seed, device=engine.device)
+    engine.set_params(params)
+    system = np.asarray(system_prompt, np.int32)
+    t0 = time.time()
+    handles = [engine.submit(np.concatenate([system,
+                                             np.asarray(s, np.int32)]),
+                             (seed + 1, i))
+               for i, s in enumerate(suffixes)]
+    while engine.step():
+        pass
+    wall = time.time() - t0
+    done = []
+    for i, h in enumerate(handles):
+        h.result(timeout=0)           # completion check (raises if not)
+        done.append(Completed(request_id=i, response_ids=h.host_rows()[0],
+                              finish_step=h.finish_step))
+    toks = sum(len(c.response_ids) for c in done)
+    return done, {"wall_s": wall, "generated_tokens": toks,
+                  "tok_per_s": toks / wall,
+                  # pages served from the tree = prompt pages not prefilled
+                  "prompt_pages_saved": engine.prefix_hit_pages,
+                  **serving_stats(engine, toks)}
 
 
 def serve_requests(cfg, prompts, *, max_prompt_len: int, max_new: int,
                    num_slots: int = 4, page_size: int = 16,
                    temperature: float = 0.7, seed: int = 0, rate: float = 0.0,
+                   spec_k: int = 0, spec_draft: str = "prompt_lookup",
+                   prefix_cache: bool = False,
                    arrivals: Optional[np.ndarray] = None, params=None,
                    engine=None, device="cuda"):
     """Serve ``prompts`` as a TIMED request stream through the
@@ -203,7 +290,8 @@ def serve_requests(cfg, prompts, *, max_prompt_len: int, max_new: int,
         engine = build_paged_engine(
             cfg, max_prompt_len=max_prompt_len, max_new=max_new,
             num_slots=num_slots, page_size=page_size,
-            temperature=temperature, device=device)
+            temperature=temperature, spec_k=spec_k, spec_draft=spec_draft,
+            prefix_cache=prefix_cache, device=device)
     if params is None:
         params = init(cfg, seed=seed, device=engine.device)
     engine.set_params(params)
@@ -213,9 +301,8 @@ def serve_requests(cfg, prompts, *, max_prompt_len: int, max_new: int,
                           arrival=float(t), max_new=max_new)
             for i, (p, t) in enumerate(zip(prompts, arrivals))]
     RequestDriver(engine).run(reqs, seed + 1)
-    stats = {"decode_steps": engine.decode_steps,
-             "peak_pages": engine.peak_pages_used}
-    return reqs, compute_latency_metrics(reqs), stats
+    m = compute_latency_metrics(reqs)
+    return reqs, m, serving_stats(engine, m["generated_tokens"])
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -239,6 +326,21 @@ def main(argv: Optional[list] = None) -> None:
                     help="Poisson arrival rate (req/s): run the request "
                          "driver and report TTFT/TPOT p50/p99 (0 = all "
                          "requests arrive at once, batch mode)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decode: prompt-lookup drafts verified "
+                         "in one k+1-token forward (stats report the "
+                         "acceptance rate)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per verify step")
+    ap.add_argument("--spec-draft", default="prompt_lookup",
+                    choices=["prompt_lookup", "model"])
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over the paged pool: requests "
+                         "sharing a token prefix share its pages")
+    ap.add_argument("--shared-system", type=int, default=0, metavar="N",
+                    help="serve N requests sharing one system prompt "
+                         "through the radix prefix cache (suffix-only "
+                         "prefill into private pages)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -246,33 +348,69 @@ def main(argv: Optional[list] = None) -> None:
     if args.reduced:
         cfg = reduced_config(cfg)
     tok = Tokenizer(cfg.vocab_size)
+    spec_k = args.spec_k if args.spec else 0
+    plane = dict(spec_k=spec_k, spec_draft=args.spec_draft)
+    if args.shared_system:
+        # the radix tree serves every request's system pages from cache
+        # after the first admission
+        system = np.asarray(tok.encode("You are a terse arithmetic solver. ")
+                            [: args.max_prompt_len], np.int32)
+        problems = ArithmeticTask(seed=args.seed).batch(args.shared_system)
+        suffixes = [np.asarray(tok.encode(p.prompt, bos=False)
+                               [: args.max_prompt_len], np.int32)
+                    for p in problems]
+        done, stats = serve_shared(
+            cfg, system, suffixes, max_prompt_len=args.max_prompt_len,
+            max_new=args.max_new, page_size=args.page_size,
+            temperature=args.temperature, seed=args.seed,
+            device=args.device, **plane)
+        extra = (f", accept={stats['acceptance_rate']:.2f}" if spec_k
+                 else "")
+        print(f"{cfg.name} on {args.device} (shared-system "
+              f"x{args.shared_system}): {stats['generated_tokens']} tokens "
+              f"in {stats['wall_s']:.2f}s ({stats['tok_per_s']:.1f} tok/s, "
+              f"{stats['decode_steps']} decode steps, prefix hit rate "
+              f"{stats['prefix_hit_rate']:.2f}, "
+              f"{stats['prompt_pages_saved']} prompt pages saved by the "
+              f"cache{extra})")
+        for c in done[:4]:
+            print(f"  req {c.request_id}: "
+                  f"{tok.decode(c.response_ids.tolist())!r}")
+        return
+
     problems = ArithmeticTask(seed=args.seed).batch(args.num_requests)
     prompts = [np.asarray(tok.encode(p.prompt)[: args.max_prompt_len],
                           np.int32) for p in problems]
     kw = dict(max_prompt_len=args.max_prompt_len, max_new=args.max_new,
               num_slots=args.slots, page_size=args.page_size,
               temperature=args.temperature, seed=args.seed,
-              device=args.device)
+              device=args.device, prefix_cache=args.prefix_cache, **plane)
+    extra_fmt = (lambda st: (f", accept={st['acceptance_rate']:.2f}, "
+                             f"{st['tokens_per_forward']:.2f} tok/forward"
+                             if spec_k else "")
+                 + (f", prefix hit rate {st['prefix_hit_rate']:.2f}"
+                    if args.prefix_cache else ""))
 
     if args.rate > 0:
-        reqs, m, _ = serve_requests(cfg, prompts, rate=args.rate, **kw)
+        reqs, m, st = serve_requests(cfg, prompts, rate=args.rate, **kw)
         print(f"{cfg.name} on {args.device} (driver x{args.slots} @ "
               f"{args.rate} req/s): {m['generated_tokens']} tokens, "
               f"TTFT p50={m['ttft_p50_s'] * 1e3:.0f}ms "
               f"p99={m['ttft_p99_s'] * 1e3:.0f}ms, "
               f"TPOT p50={m['tpot_p50_s'] * 1e3:.1f}ms "
               f"p99={m['tpot_p99_s'] * 1e3:.1f}ms, "
-              f"{m['tok_per_s']:.1f} tok/s")
+              f"{m['tok_per_s']:.1f} tok/s{extra_fmt(st)}")
         for r in reqs[:4]:
             print(f"  req {r.rid} arrived {r.arrival:.2f}s "
                   f"ttft {r.ttft:.2f}s: {tok.decode(r.tokens)!r}")
         return
 
     done, stats = serve_paged(cfg, prompts, **kw)
-    print(f"{cfg.name} on {args.device} (paged x{args.slots}): {len(done)} "
+    print(f"{cfg.name} on {args.device} (paged x{args.slots}"
+          f"{f' spec k={spec_k}' if spec_k else ''}): {len(done)} "
           f"requests in completion order, {stats['generated_tokens']} tokens "
           f"in {stats['wall_s']:.2f}s ({stats['tok_per_s']:.1f} tok/s, "
-          f"{stats['decode_steps']} decode steps)")
+          f"{stats['decode_steps']} decode steps{extra_fmt(stats)})")
     for c in done[:4]:
         print(f"  req {c.request_id} finished at step {c.finish_step}: "
               f"{tok.decode(c.response_ids.tolist())!r}")

@@ -69,7 +69,10 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
             num_pages=rl.kv_pages, max_prompt_len=rl.max_prompt_len,
             max_new_tokens=rl.max_response_len, group_size=rl.group_size,
             temperature=rl.temperature, top_p=rl.top_p,
-            capture_logprobs=rl.capture_logprobs, device=dev)
+            capture_logprobs=rl.capture_logprobs,
+            spec_k=rl.spec_k if rl.spec_decode else 0,
+            spec_draft=rl.spec_draft, spec_ngram=rl.spec_ngram,
+            prefix_cache=rl.prefix_cache, device=dev)
 
     instances = [InferenceInstance(i, cfg, scripted_fn=scripted_fn,
                                    paged_engine=paged_engine())
@@ -107,6 +110,17 @@ def main(argv=None) -> None:
                     help="shared-prompt attention packing (one row per group)")
     ap.add_argument("--wire-dtype", default="", choices=["", "bfloat16"],
                     help="weight-plane payload dtype ('' = storage dtype)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decode for rollouts (draft k tokens, "
+                         "verify them in one k+1-token forward)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per verify step")
+    ap.add_argument("--spec-draft", default="prompt_lookup",
+                    choices=["prompt_lookup", "model"])
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache on the paged rollout engine: "
+                         "prompts sharing a token prefix share its pages "
+                         "and prefill only their suffix")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
@@ -124,14 +138,17 @@ def main(argv=None) -> None:
         max_prompt_len=args.max_prompt_len,
         max_response_len=args.max_response_len,
         shared_prompt_attention=args.spa,
-        transfer_wire_dtype=args.wire_dtype, seed=args.seed)
+        transfer_wire_dtype=args.wire_dtype, spec_decode=args.spec,
+        spec_k=args.spec_k, spec_draft=args.spec_draft,
+        prefix_cache=args.prefix_cache, seed=args.seed)
     sched, _ = build_pipeline(cfg, rl, seed=args.seed, device=args.device)
     t0 = time.time()
     history = sched.run(args.iterations)
     wall = time.time() - t0
     total = sum(s.trained_tokens for s in history)
     print(f"{cfg.name} ({cfg.num_layers} layers, float32) on "
-          f"{args.device} mode={args.mode} spa={args.spa}: "
+          f"{args.device} mode={args.mode} spa={args.spa} "
+          f"spec={args.spec} prefix_cache={args.prefix_cache}: "
           f"{args.iterations} iterations, {total} tokens, {wall:.1f}s wall, "
           f"TPSPD={total / wall:.1f}")
     for s in history:
@@ -139,7 +156,11 @@ def main(argv=None) -> None:
               f"infer={s.infer_time:.2f}s train={s.train_time:.2f}s "
               f"tokens={s.trained_tokens} reward={s.reward_mean:.3f} "
               f"staleness={s.max_staleness} "
-              f"gap={s.metrics['sync_gap'] * 1e3:.0f}ms")
+              f"gap={s.metrics['sync_gap'] * 1e3:.0f}ms"
+              + (f" accept={s.metrics['spec_acceptance']:.2f}"
+                 if args.spec else "")
+              + (f" prefix_hit={s.metrics['prefix_hit_rate']:.2f}"
+                 if args.prefix_cache else ""))
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump([dataclasses.asdict(s) for s in history], f, indent=1)

@@ -5,9 +5,11 @@ causal ``kv_pos <= q_pos``, shared prompt ``kv_seg == 0 or kv_seg ==
 q_seg``; padding uses seg -1 and invalid cache slots pos ``INVALID_POS``.
 
 Which kernel runs is decided by the branch alone, never by a config flag:
-a prefill or training forward (dense path) calls the SPA wrapper, a paged
-decode step calls the paged-decode wrapper; each wrapper launches its CUDA
-kernel for CUDA tensors and runs its plain version for CPU tensors.
+a prefill or training forward (dense path) calls the SPA wrapper; against
+the paged pool, one token per row calls the paged-decode wrapper and S > 1
+tokens per row (the spec verify block, the radix cache's suffix prefill)
+the paged-verify wrapper. Each wrapper launches its CUDA kernel for CUDA
+tensors and runs its plain version for CPU tensors.
 
 Caches are updated IN PLACE (the JAX backends return new arrays): the
 paged pool is the engine's largest allocation, and a copy per step would
@@ -20,7 +22,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention import (paged_decode_attention,
+                                                  paged_verify_attention)
 from repro_torch.kernels.spa_attention import (allow_mask, chunked_attention,
                                                spa_attention)
 from repro_torch.models.layers import apply_rope
@@ -99,35 +102,47 @@ class PagedCacheBackend:
 
     def write_decode(self, state: dict, vals: tuple, positions,
                      cache_offset) -> dict:
-        """In-place flat scatter of one token per row: ``cache_offset`` (B,)
-        holds flat slot indices (page_id * page_size + slot). Engines point
-        inactive rows at the trash page, so duplicate trash indices across
-        rows are harmless garbage."""
-        idx = cache_offset.long()
+        """In-place flat scatter of the S tokens of every row, one scatter
+        of B*S tokens: ``cache_offset`` holds flat slot indices (page_id *
+        page_size + slot), (B,) for one token per row or (B, S) for a
+        multi-token block. Engines point masked tokens at the trash page,
+        so duplicate trash indices are harmless garbage."""
+        idx = cache_offset.long().reshape(-1)
         for (n, shp), val in zip(cache_streams(self.cfg), vals):
-            state[n + "_pages"].view((-1,) + shp)[idx] = val[:, 0]
-        state["pos_pages"].view(-1)[idx] = positions[:, 0]
+            state[n + "_pages"].view((-1,) + shp)[idx] = val.reshape(
+                (-1,) + shp)
+        state["pos_pages"].view(-1)[idx] = positions.reshape(-1)
         return state
 
 
 def _paged_gqa_decode(cfg: ModelConfig, q, k, v, positions, cache,
                       cache_offset, page_table):
-    """One decode token per row against the paged pool: write the token's
-    K/V in place, then flash-decode over each row's pages."""
+    """S tokens per row against the paged pool: write their K/V in place,
+    then attend over each row's pages, every token masked by its own
+    position (so causality inside a multi-token block needs nothing
+    more). S == 1 is a decode step; S > 1 the spec verify block or a
+    suffix prefill."""
     PagedCacheBackend(cfg, cache["pos_pages"].shape[1]).write_decode(
         cache, (k, v), positions, cache_offset)
-    out = paged_decode_attention(q[:, 0], cache["k_pages"], cache["v_pages"],
-                                 cache["pos_pages"], page_table,
-                                 positions[:, 0], window=cfg.sliding_window)
-    return out[:, None], cache
+    if q.shape[1] == 1:
+        out = paged_decode_attention(q[:, 0], cache["k_pages"],
+                                     cache["v_pages"], cache["pos_pages"],
+                                     page_table, positions[:, 0],
+                                     window=cfg.sliding_window)[:, None]
+    else:
+        out = paged_verify_attention(q, cache["k_pages"], cache["v_pages"],
+                                     cache["pos_pages"], page_table,
+                                     positions, window=cfg.sliding_window)
+    return out, cache
 
 
 def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
                   cache: Optional[dict] = None, cache_offset=None,
                   page_table=None):
     """x: (B, S, d). Prefill/training when ``cache`` is None or a dense
-    cache filled from offset 0; one decode step when ``cache`` is a paged
-    pool (with per-row flat write slots and a page table).
+    cache filled from offset 0; S tokens per row against the paged pool
+    when ``cache`` is one (with (B,) or (B, S) flat write slots and a page
+    table).
 
     Returns (out, cache)."""
     B, S, _ = x.shape
@@ -139,10 +154,6 @@ def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None and is_paged_cache(cache):
-        if S != 1:
-            raise ValueError(f"the paged pool takes one decode token per row "
-                             f"(got S={S}); the multi-token verify block is "
-                             f"not ported yet")
         out, cache = _paged_gqa_decode(cfg, q, k, v, positions, cache,
                                        cache_offset, page_table)
     else:

@@ -18,7 +18,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    paged_decode_attention, paged_decode_attention_plain)
+    decode_attention, decode_attention_plain, paged_decode_attention,
+    paged_decode_attention_plain, paged_verify_attention,
+    paged_verify_attention_plain, verify_attention, verify_attention_plain)
 from repro_torch.kernels.spa_attention import (  # noqa: E402
     _forward_kernel, chunked_attention, spa_attention, spa_attention_bwd,
     spa_attention_bwd_plain)
@@ -110,6 +112,86 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, D, page,
     want = paged_decode_attention_plain(*_f32(*args))
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+def _verify_pool(rng, B, S, page, lens, n_extra=1):
+    """Rows b hold ``lens[b]`` tokens in fragmented pages; the last S of
+    them are the verify block (their K/V already written). Row 0's last
+    token is a masked slot (pos 2^30), which sees every slot."""
+    n_max = -(-max(lens) // page) + n_extra
+    P = 2 + sum(-(-n // page) for n in lens)
+    ids = rng.permutation(np.arange(2, P))
+    table = np.zeros((B, n_max), np.int32)
+    pos = np.full((P, page), 2 ** 30, np.int32)
+    nxt = 0
+    for b, n in enumerate(lens):
+        for j in range(-(-n // page)):
+            table[b, j] = ids[nxt]
+            p = np.arange(j * page, (j + 1) * page)
+            pos[ids[nxt]] = np.where(p < n, p, 2 ** 30)
+            nxt += 1
+    q_pos = np.stack([np.arange(n - S, n) for n in lens]).astype(np.int32)
+    q_pos[0, -1] = 2 ** 30
+    return P, pos, table, q_pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,Hkv,D,page,lens,window", [
+    (3, 4, 4, 2, 64, 4, (6, 17, 9), None),
+    (4, 5, 24, 8, 128, 16, (100, 1060, 517, 64), None),   # spec verify
+    (1, 300, 24, 8, 128, 16, (812,), None),               # suffix prefill
+    (2, 9, 6, 2, 128, 8, (40, 77), 16),                   # windowed
+])
+def test_paged_verify_kernel_matches_plain(dev, dtype, B, S, H, Hkv, D, page,
+                                           lens, window):
+    rng = np.random.RandomState(2)
+    P, pos, table, q_pos = _verify_pool(rng, B, S, page, lens)
+    dt = getattr(torch, dtype)
+
+    def t(a, float_=False):
+        x = torch.from_numpy(np.asarray(a)).to(dev)
+        return x.to(dt) if float_ else x
+    args = (t(rng.randn(B, S, H, D).astype(np.float32), True),
+            t(rng.randn(P, page, Hkv, D).astype(np.float32), True),
+            t(rng.randn(P, page, Hkv, D).astype(np.float32), True),
+            t(pos), t(table), t(q_pos))
+    n0 = LAUNCHES["paged_verify_attention"]
+    got = paged_verify_attention(*args, window=window)
+    assert LAUNCHES["paged_verify_attention"] == n0 + 1
+    want = paged_verify_attention_plain(*_f32(*args), window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contiguous_wrappers_launch_the_kernels(dev, dtype):
+    """decode_attention / verify_attention over a contiguous cache launch
+    the paged kernels through a one-page-per-row view."""
+    rng = np.random.RandomState(3)
+    B, L, S, H, Hkv, D = 3, 200, 5, 24, 8, 128
+    dt = getattr(torch, dtype)
+    k, v = (torch.from_numpy(rng.randn(B, L, Hkv, D).astype(np.float32))
+            .to(dev, dt) for _ in range(2))
+    lens = np.asarray([200, 57, 130])
+    kv_pos = np.where(np.arange(L)[None] < lens[:, None], np.arange(L)[None],
+                      2 ** 30).astype(np.int32)
+    q_pos = (lens[:, None] - S + np.arange(S)[None]).astype(np.int32)
+    q = torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32)).to(dev, dt)
+    kp, qp = torch.from_numpy(kv_pos).to(dev), torch.from_numpy(q_pos).to(dev)
+    n0 = dict(LAUNCHES)
+    got_v = verify_attention(q, k, v, kp, qp)
+    got_d = decode_attention(q[:, 0].contiguous(), k, v, kp,
+                             qp[:, 0].contiguous())
+    assert LAUNCHES["paged_verify_attention"] == \
+        n0["paged_verify_attention"] + 1
+    assert LAUNCHES["paged_decode_attention"] == \
+        n0["paged_decode_attention"] + 1
+    f = _f32(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_v.float(), verify_attention_plain(
+        *f, kp, qp), **TOL[dtype])
+    torch.testing.assert_close(got_d.float(), decode_attention_plain(
+        f[0][:, 0], f[1], f[2], kp, qp[:, 0]), **TOL[dtype])
 
 
 # the backward's bars are relative to each tensor's largest entry: dk and
@@ -289,3 +371,37 @@ def test_captured_grad_step_on_card_matches_cpu(dev):
     for a, b in zip(leaves(g_gpu), leaves(g_cpu)):
         err = float((a.cpu() - b).abs().max())
         assert err <= 2e-4 * float(b.abs().max()), err
+
+
+def test_reduced_spec_engine_on_card_matches_cpu(dev):
+    """Greedy spec decode and the radix cache on the reduced f32 model:
+    identical tokens on the card (verify kernel) and on the CPU (plain
+    versions), and equal to the card's own non-spec tokens."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import serve_paged
+    from repro_torch.models import init
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    p_cpu = init(cfg, seed=0, device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    rng = np.random.RandomState(1)
+    system = list(rng.randint(3, 500, size=16))
+    prompts = [np.asarray(system + list(rng.randint(3, 500, size=n)),
+                          np.int32) for n in (3, 11, 7)]
+    kw = dict(max_prompt_len=40, max_new=10, num_slots=2, page_size=8,
+              temperature=0.0, seed=0, prefix_cache=True)
+    n0 = LAUNCHES["paged_verify_attention"]
+    gpu, stats = serve_paged(cfg, prompts, device=dev, params=to(p_cpu),
+                             spec_k=3, **kw)
+    assert LAUNCHES["paged_verify_attention"] > n0
+    assert stats["prefix_hit_pages"] > 0
+    cpu, _ = serve_paged(cfg, prompts, device="cpu", params=p_cpu, spec_k=3,
+                         **kw)
+    plain, _ = serve_paged(cfg, prompts, device=dev, params=to(p_cpu),
+                           **dict(kw, prefix_cache=False))
+
+    def toks(done):
+        return {c.request_id: c.response_ids.tolist() for c in done}
+    assert toks(gpu) == toks(cpu) == toks(plain)

@@ -43,8 +43,11 @@ def test_port_scan_covers_the_package():
     names = {p.name for p in _port_files()}
     assert {"paged.py", "serve.py", "spa_attention.py",
             "decode_attention.py", "chip_smoke.py", "train.py",
-            "scheduler.py", "service.py", "transfer_cast.py", "grpo.py"
-            } <= names
+            "scheduler.py", "service.py", "transfer_cast.py", "grpo.py",
+            "radix.py", "verify.py", "draft.py", "sampler.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"src/repro_torch/spec/__init__.py",
+            "src/repro_torch/core/radix.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -64,6 +67,10 @@ def test_entry_modules_import_with_jax_and_repro_blocked():
         "import repro_torch.convert, repro_torch.kernels.build\n"
         "import repro_torch.launch.train, repro_torch.core.scheduler\n"
         "import repro_torch.kernels.transfer_cast\n"
+        "import repro_torch.spec, repro_torch.spec.verify\n"
+        "import repro_torch.spec.draft, repro_torch.spec.sampler\n"
+        "import repro_torch.core.radix\n"
+        "from repro_torch.launch.serve import serve_shared, serving_stats\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")

@@ -95,14 +95,17 @@ def test_admission_waits_for_pages(setup):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(spec_k=2), "speculative"),
-    (dict(prefix_cache=True), "prefix"),
+    (dict(spec_k=2, spec_draft="model"), "draft model"),
+    (("window", dict(spec_k=2)), "sliding-window"),
     ("window", "sliding-window"),
     ("mla", "MLA"),
 ])
 def test_engine_rejects_unported_configs(change, match):
     cfg = reduced_config(get_config("llama3.2-3b"))
     kw = _kw(1)
+    if isinstance(change, tuple):
+        change, extra = change
+        kw.update(extra)
     if change == "window":
         cfg = dataclasses.replace(cfg, sliding_window=32)
     elif change == "mla":
