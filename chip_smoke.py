@@ -452,6 +452,15 @@ def _visible(np, q_pos, kv_pos, window):
     return ok
 
 
+def _slots_read(np, table, page, vis):
+    """Physical (page, slot) pairs some query of the call sees: the K/V
+    the function must read, each once. A masked query (pos 2^30) sees the
+    null page once per unused table entry, but it is one page."""
+    phys = (table[:, :, None] * page + np.arange(page)).reshape(
+        table.shape[0], -1)
+    return int(np.unique(phys[vis.any(axis=1)]).size)
+
+
 def verify_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, page=16,
                 window=None, suffix=False):
     """Paged verify at full-width heads: each row holds its context in
@@ -485,7 +494,7 @@ def verify_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, page=16,
     kv_pos = pos[table].reshape(B, -1)
     vis = _visible(np, q_pos, kv_pos, window)
     pairs = int(vis.sum())
-    keys = int(vis.any(axis=1).sum())          # keys some query sees
+    keys = _slots_read(np, table, page, vis)
 
     def library():
         k, v, kvp = gather_pages(kp, vp, pos_t, table_t)
@@ -1204,12 +1213,14 @@ def main() -> None:
                               responses=4, resp_len=128))
         cases.append(spa_case(torch, timer, dev, gen, dtype, prompt=1024,
                               window=256))
-        cases.append(decode_case(torch, timer, dev, gen, dtype, B=4,
-                                 ctx_max=1056))
-        cases.append(decode_case(torch, timer, dev, gen, dtype, B=16,
-                                 ctx_max=8192))
-        cases.append(verify_case(torch, timer, dev, gen, dtype, B=4, S=5,
-                                 ctx_max=1060))
+        dec = decode_case(torch, timer, dev, gen, dtype, B=4, ctx_max=1056)
+        cases += [dec, decode_case(torch, timer, dev, gen, dtype, B=16,
+                                   ctx_max=8192)]
+        ver = verify_case(torch, timer, dev, gen, dtype, B=4, S=5,
+                          ctx_max=1060)
+        cases.append(ver)
+        if dtype == "bfloat16":               # phase 3's and phase 8's
+            main_dec, spec_verify = dec, ver
         bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
                                       prompt=1024))
         bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
@@ -1228,7 +1239,6 @@ def main() -> None:
     cases += [train_spa, train_dec]
     # paged verify: the rollout engine's spec shape (f32), a suffix
     # prefill, a windowed case; the contiguous-cache wrappers
-    spec_verify = cases[5]                    # bf16, B 4, S 5: phase 8's
     cases += [
         verify_case(torch, timer, dev, gen, "float32", B=8, S=SPEC_K + 1,
                     ctx_max=TRAIN_PROMPT + TRAIN_RESP + SPEC_K),
@@ -1248,7 +1258,6 @@ def main() -> None:
 
     eng, params, prompts, serve = serve_full_width(torch, np, dev, args.seed)
     launches = serve["launches"]
-    main_dec = cases[3]                       # bf16, B 4: the serving shape
     serve["attn_decode_share_of_tpot"] = (
         serve["layers"] * main_dec["ms"] / 1e3 / serve["tpot_p50_s"])
     emit(serve)

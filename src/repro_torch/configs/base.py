@@ -138,13 +138,10 @@ class RLConfig:
     kv_page_size: int = 16             # tokens per KV page
     kv_pages: int = 0                  # physical pages (0 = auto-size)
     # speculative decode on the paged engine: draft spec_k tokens with the
-    # prompt-lookup provider ("model", a resident draft model, is not
-    # ported), verify them in ONE k+1-token forward, accept by rejection
-    # sampling (distribution-exact: Proposition 1 holds)
+    # prompt-lookup provider, verify them in ONE k+1-token forward, accept
+    # by rejection sampling (distribution-exact: Proposition 1 holds)
     spec_decode: bool = False
     spec_k: int = 4                    # drafted tokens per verify step
-    spec_draft: str = "prompt_lookup"
-    spec_ngram: int = 3                # longest n-gram the lookup tries
     # radix prefix cache on the paged engine: prompts sharing a token-span
     # prefix share its cached pages and prefill only their suffix
     prefix_cache: bool = False

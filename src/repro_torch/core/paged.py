@@ -66,8 +66,8 @@ from repro_torch.models.attention import INVALID_POS, cache_streams
 from repro_torch.models.layers import lm_head_weight
 from repro_torch.rl.rollout import (Key, RolloutBatch, _sample_token_rows,
                                     row_generator, sampled_token_logprob)
-from repro_torch.spec import (commit_block, make_draft_provider,
-                              pack_row_block, truncate_commit, verify_block)
+from repro_torch.spec import (PromptLookupDraft, commit_block, pack_row_block,
+                              truncate_commit, verify_block)
 
 NULL_PAGE = 0
 TRASH_PAGE = 1
@@ -218,7 +218,6 @@ class PagedGroupEngine:
                  group_size: int, temperature: float = 1.0, top_p: float = 1.0,
                  eos_id: int = Tokenizer.EOS, pad_id: int = Tokenizer.PAD,
                  capture_logprobs: bool = True, spec_k: int = 0,
-                 spec_draft: str = "prompt_lookup", spec_ngram: int = 3,
                  prefix_cache: bool = False, device="cuda"):
         if num_slots < 1 or page_size < 1:
             raise ValueError(f"paged engine needs num_slots >= 1 and "
@@ -227,8 +226,7 @@ class PagedGroupEngine:
         self.spec_k = spec_k
         if spec_k:
             require_engine_support(cfg, "spec")
-            self._draft = make_draft_provider(spec_draft, cfg, num_slots,
-                                              spec_k=spec_k, ngram=spec_ngram)
+            self._draft = PromptLookupDraft(num_slots)
         if prefix_cache:
             require_engine_support(cfg, "prefix")
         self.cfg = cfg

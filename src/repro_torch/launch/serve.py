@@ -159,19 +159,17 @@ class RequestDriver:
 def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
                        num_slots: int = 4, page_size: int = 16,
                        temperature: float = 0.7, spec_k: int = 0,
-                       spec_draft: str = "prompt_lookup",
-                       prefix_cache: bool = False, extra_pages: int = 0,
-                       device="cuda"):
+                       prefix_cache: bool = False, device="cuda"):
     """One serving-shaped paged engine (group_size=1, no logprob capture):
     enough pages for every slot to hold a full prompt + response, plus
-    ``extra_pages``, plus (with the prefix cache) one prompt's pages of
-    headroom so a cached prompt can stay resident."""
+    (with the prefix cache) one prompt's pages of headroom so a cached
+    prompt can stay resident."""
     if num_slots < 1 or page_size < 1:
         raise ValueError(f"serving needs num_slots >= 1 and "
                          f"page_size >= 1, got {num_slots}/{page_size}")
     n_pp = -(-max_prompt_len // page_size)
     n_rp = -(-max_new // page_size)
-    pages = FIRST_PAGE + num_slots * (n_pp + n_rp) + extra_pages
+    pages = FIRST_PAGE + num_slots * (n_pp + n_rp)
     if prefix_cache:
         pages += n_pp
     return PagedGroupEngine(cfg, num_slots=num_slots, page_size=page_size,
@@ -179,8 +177,8 @@ def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
                             max_new_tokens=max_new, group_size=1,
                             temperature=temperature,
                             capture_logprobs=False,   # serving: no consumer
-                            spec_k=spec_k, spec_draft=spec_draft,
-                            prefix_cache=prefix_cache, device=device)
+                            spec_k=spec_k, prefix_cache=prefix_cache,
+                            device=device)
 
 
 def serving_stats(eng, generated_tokens: int) -> dict:
@@ -206,16 +204,15 @@ def serving_stats(eng, generated_tokens: int) -> dict:
 def serve_paged(cfg, prompts, *, max_prompt_len: int, max_new: int,
                 num_slots: int = 4, page_size: int = 16,
                 temperature: float = 0.7, seed: int = 0, spec_k: int = 0,
-                spec_draft: str = "prompt_lookup", prefix_cache: bool = False,
-                device="cuda", params=None):
+                prefix_cache: bool = False, device="cuda", params=None):
     """Serve independent requests through the paged engine as one batch
     (each request its own 1-row group); returns (completions in completion
     order, stats)."""
     eng = build_paged_engine(cfg, max_prompt_len=max_prompt_len,
                              max_new=max_new, num_slots=num_slots,
                              page_size=page_size, temperature=temperature,
-                             spec_k=spec_k, spec_draft=spec_draft,
-                             prefix_cache=prefix_cache, device=device)
+                             spec_k=spec_k, prefix_cache=prefix_cache,
+                             device=device)
     if params is None:
         params = init(cfg, seed=seed, device=eng.device)
     t0 = time.time()
@@ -228,8 +225,7 @@ def serve_paged(cfg, prompts, *, max_prompt_len: int, max_new: int,
 
 def serve_shared(cfg, system_prompt, suffixes, *, max_prompt_len: int,
                  max_new: int, page_size: int = 16, temperature: float = 0.7,
-                 seed: int = 0, spec_k: int = 0,
-                 spec_draft: str = "prompt_lookup", device="cuda",
+                 seed: int = 0, spec_k: int = 0, device="cuda",
                  params=None, engine=None):
     """Serve N requests that share one system prompt through the radix
     prefix cache: each request submits its FULL prompt (system + its own
@@ -245,8 +241,7 @@ def serve_shared(cfg, system_prompt, suffixes, *, max_prompt_len: int,
         engine = build_paged_engine(
             cfg, max_prompt_len=max(max_prompt_len, full), max_new=max_new,
             num_slots=N, page_size=page_size, temperature=temperature,
-            spec_k=spec_k, spec_draft=spec_draft, prefix_cache=True,
-            device=device)
+            spec_k=spec_k, prefix_cache=True, device=device)
     if engine.radix is None:
         raise ValueError("serve_shared needs an engine built with "
                          "prefix_cache=True")
@@ -278,8 +273,7 @@ def serve_shared(cfg, system_prompt, suffixes, *, max_prompt_len: int,
 def serve_requests(cfg, prompts, *, max_prompt_len: int, max_new: int,
                    num_slots: int = 4, page_size: int = 16,
                    temperature: float = 0.7, seed: int = 0, rate: float = 0.0,
-                   spec_k: int = 0, spec_draft: str = "prompt_lookup",
-                   prefix_cache: bool = False,
+                   spec_k: int = 0, prefix_cache: bool = False,
                    arrivals: Optional[np.ndarray] = None, params=None,
                    engine=None, device="cuda"):
     """Serve ``prompts`` as a TIMED request stream through the
@@ -290,7 +284,7 @@ def serve_requests(cfg, prompts, *, max_prompt_len: int, max_new: int,
         engine = build_paged_engine(
             cfg, max_prompt_len=max_prompt_len, max_new=max_new,
             num_slots=num_slots, page_size=page_size,
-            temperature=temperature, spec_k=spec_k, spec_draft=spec_draft,
+            temperature=temperature, spec_k=spec_k,
             prefix_cache=prefix_cache, device=device)
     if params is None:
         params = init(cfg, seed=seed, device=engine.device)
@@ -332,8 +326,6 @@ def main(argv: Optional[list] = None) -> None:
                          "acceptance rate)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens per verify step")
-    ap.add_argument("--spec-draft", default="prompt_lookup",
-                    choices=["prompt_lookup", "model"])
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache over the paged pool: requests "
                          "sharing a token prefix share its pages")
@@ -349,7 +341,7 @@ def main(argv: Optional[list] = None) -> None:
         cfg = reduced_config(cfg)
     tok = Tokenizer(cfg.vocab_size)
     spec_k = args.spec_k if args.spec else 0
-    plane = dict(spec_k=spec_k, spec_draft=args.spec_draft)
+    plane = dict(spec_k=spec_k)
     if args.shared_system:
         # the radix tree serves every request's system pages from cache
         # after the first admission

@@ -71,7 +71,6 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
             temperature=rl.temperature, top_p=rl.top_p,
             capture_logprobs=rl.capture_logprobs,
             spec_k=rl.spec_k if rl.spec_decode else 0,
-            spec_draft=rl.spec_draft, spec_ngram=rl.spec_ngram,
             prefix_cache=rl.prefix_cache, device=dev)
 
     instances = [InferenceInstance(i, cfg, scripted_fn=scripted_fn,
@@ -115,8 +114,6 @@ def main(argv=None) -> None:
                          "verify them in one k+1-token forward)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens per verify step")
-    ap.add_argument("--spec-draft", default="prompt_lookup",
-                    choices=["prompt_lookup", "model"])
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache on the paged rollout engine: "
                          "prompts sharing a token prefix share its pages "
@@ -139,8 +136,7 @@ def main(argv=None) -> None:
         max_response_len=args.max_response_len,
         shared_prompt_attention=args.spa,
         transfer_wire_dtype=args.wire_dtype, spec_decode=args.spec,
-        spec_k=args.spec_k, spec_draft=args.spec_draft,
-        prefix_cache=args.prefix_cache, seed=args.seed)
+        spec_k=args.spec_k, prefix_cache=args.prefix_cache, seed=args.seed)
     sched, _ = build_pipeline(cfg, rl, seed=args.seed, device=args.device)
     t0 = time.time()
     history = sched.run(args.iterations)

@@ -9,11 +9,10 @@ Proposition 1 survives; greedy spec is token-identical to non-spec.
 * ``sampler.py`` — the block-packing and truncation helpers the paged
   engine (``core/paged.py``) uses.
 """
-from repro_torch.spec.draft import (PromptLookupDraft, draft_config,
-                                    make_draft_provider)
+from repro_torch.spec.draft import PromptLookupDraft, make_draft_provider
 from repro_torch.spec.sampler import pack_row_block, truncate_commit
 from repro_torch.spec.verify import assemble_commit, commit_block, verify_block
 
 __all__ = ["verify_block", "commit_block", "assemble_commit",
-           "PromptLookupDraft", "draft_config", "make_draft_provider",
+           "PromptLookupDraft", "make_draft_provider",
            "pack_row_block", "truncate_commit"]

@@ -17,13 +17,9 @@ does not have yet (ROADMAP Queue 1); asking for it raises.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import List, Optional
 
 import numpy as np
-
-from repro_torch.configs.base import ModelConfig
-from repro_torch.data.tokenizer import Tokenizer
 
 
 class PromptLookupDraft:
@@ -74,25 +70,15 @@ class PromptLookupDraft:
         return out
 
 
-def draft_config(cfg: ModelConfig) -> ModelConfig:
-    """The resident draft model's shape for ``cfg``: same family and
-    vocab, half the depth."""
-    return dataclasses.replace(cfg, name=cfg.name + "-draft",
-                               num_layers=max(1, cfg.num_layers // 2))
-
-
-def make_draft_provider(kind: str, cfg: ModelConfig, num_slots: int, *,
-                        spec_k: int, ngram: int = 3,
-                        max_prompt_len: int = 0, max_new_tokens: int = 0,
-                        pad_id: int = Tokenizer.PAD, seed: int = 0):
+def make_draft_provider(kind: str, num_slots: int):
     """A draft provider for an engine with ``num_slots`` slots. ``kind``:
     "prompt_lookup" (the port's provider) or "model" (not ported)."""
     if kind == "prompt_lookup":
-        return PromptLookupDraft(num_slots, ngram_max=ngram)
+        return PromptLookupDraft(num_slots)
     if kind == "model":
         raise ValueError(
-            "spec_draft='model' needs a resident draft model decoding over "
-            "a dense cache of its own, which is not ported to PyTorch yet "
-            "(ROADMAP.md Queue 1); use spec_draft='prompt_lookup'")
+            "a draft model needs a resident model decoding over a dense "
+            "cache of its own, which is not ported to PyTorch yet "
+            "(ROADMAP.md Queue 1); use the prompt-lookup draft")
     raise KeyError(f"unknown draft provider {kind!r}; "
                    f"known: prompt_lookup, model")

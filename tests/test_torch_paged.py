@@ -95,7 +95,7 @@ def test_admission_waits_for_pages(setup):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(spec_k=2, spec_draft="model"), "draft model"),
+    (("mla", dict(spec_k=2, prefix_cache=True)), "MLA"),
     (("window", dict(spec_k=2)), "sliding-window"),
     ("window", "sliding-window"),
     ("mla", "MLA"),

@@ -235,11 +235,12 @@ def test_prompt_lookup_draft_equal_to_jax():
 
 
 def test_model_draft_is_refused():
-    cfg = reduced_config(get_config("llama3.2-3b"))
     with pytest.raises(ValueError, match="draft model"):
-        make_draft_provider("model", cfg, 2, spec_k=K)
+        make_draft_provider("model", 2)
     with pytest.raises(KeyError, match="unknown draft"):
-        make_draft_provider("oracle", cfg, 2, spec_k=K)
+        make_draft_provider("oracle", 2)
+    assert isinstance(make_draft_provider("prompt_lookup", 2),
+                      PromptLookupDraft)
 
 
 # ---------------------------------------------------------------------
