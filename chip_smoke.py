@@ -76,7 +76,26 @@ Phases, each printing one JSON line (every phase fails the run on error):
  10. spec_parity: reduced llama (2 layers, f32), card against CPU: greedy
      spec tokens identical to the CPU's and to the card's own non-spec
      greedy tokens; warm radix tokens identical to cold; a warm suffix
-     prefill's last-token logits within 1e-3 of the cold prefill's.
+     prefill's last-token logits within 1e-3 of the cold prefill's;
+ 11. mla_serve: full-width deepseek-v2-lite attention with MoE off
+     (``mla_dense``: 27 layers, d 2048, H 16, MLA r 512 / rd 64 / nd 128
+     / vd 128, SwiGLU d_ff 1408 in every layer, random bf16 weights made
+     on the card from --seed) serves 8 requests (prompts of 64 to 1024
+     tokens, 32 new tokens, 4 slots, page 16, temperature 0.7) through
+     RequestDriver and the paged engine. Checks launches: the MLA decode
+     kernel 27 x decode steps; the MLA verify, SPA and GQA paged kernels
+     0 (the expanded MLA prefill is plain PyTorch, as in the JAX
+     package); every page back on the freelist. Prints tok/s, TTFT and
+     TPOT p50/p99, peak memory and the latent pool's bytes per token
+     beside llama3.2-3b's K/V bytes per token; then profiles its decode
+     steps as phase 4 does (mla_profile);
+ 12. mla_spec_serve: the same model and requests with spec decode
+     (prompt lookup, k 4). Checks MLA verify launches = 27 x verify
+     forwards, MLA decode launches 0, every page back. Prints the
+     acceptance rate and tokens per verify forward;
+ 13. mla_parity: reduced mla_dense (2 layers, f32), card against CPU,
+     greedy: identical tokens with spec off and on, spec tokens identical
+     to non-spec tokens, prefill logits within 1e-3.
 
 Phases 8 and 9 run right after phase 4, on the same weights.
 
@@ -85,12 +104,20 @@ version (full-width heads; a 1024-token prompt, an SPA-packed row, a
 windowed prompt and the training row's shape; f32 and bf16; two launches
 bitwise equal) and the transfer_cast kernel against x.to(torch.bfloat16),
 bitwise, on every leaf of the training tree, a misaligned ragged length
-and special values (ties, denormals, +-Inf, NaN).
+and special values (ties, denormals, +-Inf, NaN). It also holds the MLA
+kernel (both of its wrappers) against its plain version at full-width
+heads (H 16, r 512, rd 64, MLA's scale 192^-0.5, page 16), bf16 and f32:
+decode at B 4 with contexts 64 to 1088 (phase 11's shape) and at B 16
+with contexts up to 8k, verify at B 4, S 5, contexts up to 1060 (phase
+12's), and a windowed verify. Its library call is a page gather plus
+scaled_dot_product_attention with the boolean mask (Dv != Dk); its bytes
+count each unique physical (page, slot) pair the call sees once.
 
-Then one line {"kernels": [...]} with the five kernels: the four of the
-training path at the training run's shapes and launch counts (phase 6),
-paged_verify_attention at the spec shape with phase 8's launches; and
-last {"ok": true, "device": {...}}.
+Then one line {"kernels": [...]} with seven entries: the four kernels of
+the training path at the training run's shapes and launch counts (phase
+6), paged_verify_attention at the spec shape with phase 8's launches,
+and the MLA kernel's decode case with phase 11's launches and its verify
+case with phase 12's; and last {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
 """
@@ -580,6 +607,84 @@ def contiguous_case(torch, timer, dev, gen, dtype, *, verify, B=4, S=5,
     }
 
 
+MLA_HEADS = (16, 512, 64, 128)     # H, r, rd, nd of full-width mla_dense
+
+
+def mla_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, ctx_min=None,
+             page=16, window=None):
+    """The paged MLA kernel at full-width heads over a fragmented latent
+    pool: S == 1 through paged_mla_decode_attention, S > 1 through
+    paged_mla_verify_attention (row 0's last token then a masked slot at
+    pos 2^30, as a fresh row's pad slot). Rows hold ctx_min (default
+    ctx_max / 8) to ctx_max tokens; the queries are each row's last S."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        gather_latent_pages, paged_mla_decode_attention,
+        paged_mla_decode_attention_plain, paged_mla_verify_attention,
+        paged_mla_verify_attention_plain)
+    H, r, rd, nd = MLA_HEADS
+    scale = (nd + rd) ** -0.5
+    rng = np.random.RandomState(B * 1000 + S + 7)
+    lo = max(S, ctx_max // 8) if ctx_min is None else ctx_min
+    lens = np.linspace(lo, ctx_max, B).astype(int)
+    n_max = -(-ctx_max // page) + 1
+    P, pos, table, used_pages = _fragmented_pool(np, rng, lens, page, n_max)
+    q_pos = np.stack([np.arange(n - S, n) for n in lens]).astype(np.int32)
+    if S > 1:
+        q_pos[0, -1] = 2 ** 30
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, r + rd, generator=gen, device=dev).to(dt)
+    ckv = torch.randn(P, page, r, generator=gen, device=dev).to(dt)
+    kr = torch.randn(P, page, rd, generator=gen, device=dev).to(dt)
+    pos_t = torch.from_numpy(pos).to(dev)
+    table_t = torch.from_numpy(table).to(dev)
+    qpos_t = torch.from_numpy(q_pos).to(dev)
+    if S == 1:
+        name = "paged_mla_decode_attention"
+        fn, plain = paged_mla_decode_attention, \
+            paged_mla_decode_attention_plain
+        args = (q[:, 0].contiguous(), ckv, kr, pos_t, table_t,
+                qpos_t[:, 0].contiguous())
+    else:
+        name = "paged_mla_verify_attention"
+        fn, plain = paged_mla_verify_attention, \
+            paged_mla_verify_attention_plain
+        args = (q, ckv, kr, pos_t, table_t, qpos_t)
+    kw = dict(scale=scale, window=window)
+    got = fn(*args, **kw)
+    want = plain(*f32(args), **kw)
+    err, ok = max_err(torch, got, want, TOL[dtype])
+    kv_pos = pos[table].reshape(B, -1)
+    vis = _visible(np, q_pos, kv_pos, window)
+    pairs = int(vis.sum())
+    keys = _slots_read(np, table, page, vis)
+
+    def library():
+        k, v, kvp = gather_latent_pages(ckv, kr, pos_t, table_t)
+        m = kvp[:, None, :] <= qpos_t[:, :, None]
+        if window is not None:
+            m &= (qpos_t[:, :, None] - kvp[:, None, :]) < window
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=m[:, None], scale=scale, enable_gqa=True)
+    elt = q.element_size()
+    bytes_moved = (B * S * H * ((r + rd) + r) + keys * (r + rd)) * elt \
+        + 4 * (used_pages * page + table.size + q_pos.size)
+    b_ms, b_by = bound(bytes_moved, 2.0 * pairs * H * ((r + rd) + r), dtype)
+    return {
+        "kernel": name, "dtype": dtype, "B": B, "S": S,
+        "ctx": [int(lens.min()), int(lens.max())], "n_max": n_max,
+        "page": page, "H": H, "r": r, "rd": rd, "scale": scale,
+        "window": window, "visible_keys": keys, "visible_pairs": pairs,
+        "max_abs_err": err, "tol": TOL[dtype], "ok": ok,
+        "ms": timer.ms(lambda: fn(*args, **kw), 20),
+        "plain_ms": timer.ms(lambda: plain(*args, **kw), 5),
+        "library_ms": timer.ms(library, 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 # ---------------------------------------------------------------------
 # phase 3: full-width serving; phase 4: reduced parity with the CPU
 # ---------------------------------------------------------------------
@@ -973,6 +1078,171 @@ def spec_parity(torch, np, dev, seed: int):
 
 
 # ---------------------------------------------------------------------
+# phases 11-13: MLA (deepseek-v2-lite attention, MoE off)
+# ---------------------------------------------------------------------
+
+def mla_dense_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                               num_experts=0, num_experts_per_tok=0,
+                               num_shared_experts=0, moe_d_ff=0,
+                               first_k_dense=0, dense_d_ff=0)
+
+
+def _pool_bytes_per_token(cfg) -> int:
+    """Bytes one cached token takes in the paged pool over all layers."""
+    import math
+    from repro_torch.models.attention import cache_streams
+    from repro_torch.models.layers import dtype_of
+    elt = dtype_of(cfg.compute_dtype).itemsize
+    return cfg.num_layers * elt * sum(math.prod(shp)
+                                      for _, shp in cache_streams(cfg))
+
+
+def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
+    """Full-width mla_dense through RequestDriver and the paged engine,
+    spec decode off (phase 11) or on (phase 12). Returns (params, engine,
+    prompts, result)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine, serve_requests
+    from repro_torch.models import init
+    cfg = mla_dense_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    init_s = None
+    if params is None:
+        t0 = time.time()
+        params = init(cfg, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+    rng = np.random.RandomState(seed + 11)
+    lens = rng.randint(64, 1025, size=8)
+    lens[int(np.argmax(lens))] = 1024
+    prompts = [rng.randint(3, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+               for n in lens]
+    kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
+              temperature=0.7, spec_k=spec_k)
+    eng = build_paged_engine(cfg, device=dev, **kw)
+    serve_requests(cfg, prompts[:1], params=params, engine=eng, seed=seed,
+                   arrivals=np.zeros(1), **kw)        # warm-up request
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reqs, m, stats = serve_requests(cfg, prompts, params=params, engine=eng,
+                                    seed=seed, arrivals=np.zeros(len(prompts)),
+                                    **kw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    snap = eng.stats_snapshot()
+    L = cfg.num_layers
+    steps = snap["decode_steps"]
+    expect = {name: 0 for name in launches}
+    expect["paged_mla_verify_attention" if spec_k
+           else "paged_mla_decode_attention"] = L * steps
+    phase = "mla_spec_serve" if spec_k else "mla_serve"
+    out = {
+        "phase": phase, "arch": cfg.name, "moe": False, "layers": L,
+        "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "kv_lora_rank": cfg.kv_lora_rank,
+        "qk_rope_head_dim": cfg.qk_rope_head_dim,
+        "params": sum(t.numel() for t in _leaves(params)),
+        "dtype": cfg.param_dtype, "init_s": init_s,
+        "requests": len(reqs), "prompt_lens": [int(n) for n in lens],
+        "max_new": 32, "slots": 4, "page": 16, "temperature": 0.7,
+        "spec_k": spec_k, "generated_tokens": m["generated_tokens"],
+        "tok_per_s": m["tok_per_s"], "makespan_s": m["makespan_s"],
+        "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
+        "tpot_p50_s": m["tpot_p50_s"], "tpot_p99_s": m["tpot_p99_s"],
+        "prefills": snap["prefills"],
+        ("verify_forwards" if spec_k else "decode_steps"): steps,
+        "peak_pages": stats["peak_pages"],
+        "pool_bytes_per_token": _pool_bytes_per_token(cfg),
+        "llama3.2-3b_pool_bytes_per_token": _pool_bytes_per_token(
+            get_config("llama3.2-3b")),
+        "launches": launches, "expected_launches": expect,
+        "pages_conserved": _pages_conserved(eng),
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "first_tokens": [r.tokens[:8] for r in reqs[:2]],
+    }
+    if spec_k:
+        out.update(row_verifies=snap["spec_steps"],
+                   acceptance_rate=stats["acceptance_rate"],
+                   tokens_per_forward=stats["tokens_per_forward"],
+                   rolled_back_pages=stats["rolled_back_pages"])
+    if {k: launches[k] for k in expect} != expect or steps == 0 or \
+            snap["prefills"] != len(prompts):
+        fail(f"{phase}: launches {launches} != {expect}")
+    if not out["pages_conserved"]:
+        fail(f"{phase}: pages did not all return to the freelist")
+    for r in reqs:
+        if not 1 <= len(r.tokens) <= 32 or \
+                not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            fail(f"{phase}: request {r.rid}: bad tokens {r.tokens}")
+    if not bool(torch.isfinite(eng.logits).all()):
+        fail(f"{phase}: non-finite logits after serving")
+    return params, eng, prompts, out
+
+
+def mla_parity(torch, np, dev, seed: int):
+    """Reduced mla_dense on the card against the CPU, greedy, spec off
+    and on, and prefill logits."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve_paged
+    from repro_torch.models import forward, init
+    cfg = reduced_config(mla_dense_config())
+    p_cpu = init(cfg, seed=seed, device="cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
+                for k, v in tree.items()}
+    p_gpu = to(p_cpu, dev)
+    rng = np.random.RandomState(seed + 13)
+    # prompts that repeat themselves, so the prompt lookup drafts hit
+    prompts = []
+    for n in rng.randint(8, 40, size=4):
+        base = rng.randint(3, cfg.vocab_size, size=(int(n) // 2 + 1,))
+        prompts.append(np.concatenate([base, base])[:int(n)].astype(np.int32))
+    kw = dict(max_prompt_len=48, max_new=16, num_slots=2, page_size=16,
+              temperature=0.0, seed=seed)
+
+    def tokens(done):
+        return {c.request_id: c.response_ids.tolist() for c in done}
+    reset_launch_counts()
+    plain_gpu = tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
+                                   **kw)[0])
+    plain_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+                                   **kw)[0])
+    done_gpu, spec_stats = serve_paged(cfg, prompts, device=dev,
+                                       params=p_gpu, spec_k=SPEC_K, **kw)
+    spec_gpu = tokens(done_gpu)
+    spec_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+                                  spec_k=SPEC_K, **kw)[0])
+    launches = dict(LAUNCHES)
+    if not plain_gpu == plain_cpu == spec_gpu == spec_cpu:
+        fail(f"mla greedy tokens differ: card {plain_gpu}, CPU {plain_cpu}, "
+             f"card spec {spec_gpu}, CPU spec {spec_cpu}")
+    toks = torch.from_numpy(rng.randint(3, cfg.vocab_size, size=(2, 48)))
+    lg_cpu, _ = forward(p_cpu, cfg, toks)
+    lg_gpu, _ = forward(p_gpu, cfg, toks.to(dev))
+    err = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    out = {"phase": "mla_parity", "arch": cfg.name, "dtype": "float32",
+           "r": cfg.kv_lora_rank, "rd": cfg.qk_rope_head_dim,
+           "requests": len(prompts), "spec_k": SPEC_K,
+           "tokens": sum(len(t) for t in plain_cpu.values()),
+           "spec_acceptance_rate": spec_stats["acceptance_rate"],
+           "spec_tokens_per_forward": spec_stats["tokens_per_forward"],
+           "tokens_identical_card_cpu_spec_nonspec": True,
+           "prefill_logits_max_abs_err": err, "tol": 1e-3,
+           "launches_card": launches}
+    if err > 1e-3 or launches["paged_mla_decode_attention"] == 0 or \
+            launches["paged_mla_verify_attention"] == 0:
+        fail(f"mla parity: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------
 # phase 6: one periodic-async GRPO run at full width; phase 7: parity
 # ---------------------------------------------------------------------
 
@@ -1045,6 +1315,8 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
         "spa_attention_bwd": L * (cap + rec),
         "paged_decode_attention": L * steps,
         "paged_verify_attention": 0,           # spec and prefix are off
+        "paged_mla_decode_attention": 0,       # llama: no MLA
+        "paged_mla_verify_attention": 0,
         "transfer_cast": n_leaves * publishes,
     }
     formula = {
@@ -1053,6 +1325,8 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
         "spa_attention_bwd": f"L*(captured + recomputed) = {L}*({cap} + {rec})",
         "paged_decode_attention": f"L*decode_steps = {L}*{steps}",
         "paged_verify_attention": "0 (spec and prefix cache off)",
+        "paged_mla_decode_attention": "0 (no MLA)",
+        "paged_mla_verify_attention": "0 (no MLA)",
         "transfer_cast": f"leaves*publishes = {n_leaves}*{publishes}",
     }
     out = {
@@ -1091,7 +1365,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
         fail(f"train: pool leaves are not the bf16-rounded policy: {flips}, "
              f"staged {staged_ok}")
     if launches != expect or 0 in (v for k, v in expect.items()
-                                   if k != "paged_verify_attention"):
+                                   if formula[k][0] != "0"):
         fail(f"train: launches {launches} != expected {expect} ({formula})")
     if not all(bool(torch.isfinite(t).all())
                for t in _tree_leaves(tri.policy)):
@@ -1249,6 +1523,20 @@ def main() -> None:
         contiguous_case(torch, timer, dev, gen, "bfloat16", verify=False),
         contiguous_case(torch, timer, dev, gen, "bfloat16", verify=True),
     ]
+    # the MLA kernel at full-width heads, bound by name where each is made
+    mla = {}
+    for dtype in ("bfloat16", "float32"):
+        mla["decode_serve_" + dtype] = mla_case(
+            torch, timer, dev, gen, dtype, B=4, S=1, ctx_min=64,
+            ctx_max=1088)
+        mla["decode_long_" + dtype] = mla_case(
+            torch, timer, dev, gen, dtype, B=16, S=1, ctx_max=8192)
+        mla["verify_spec_" + dtype] = mla_case(
+            torch, timer, dev, gen, dtype, B=4, S=SPEC_K + 1, ctx_max=1060)
+    mla["verify_window_bfloat16"] = mla_case(
+        torch, timer, dev, gen, "bfloat16", B=4, S=SPEC_K + 1, ctx_max=1060,
+        window=256)
+    cases += [{"case": k, **c} for k, c in mla.items()]
     bwd_cases.append(train_bwd)
     for c in cases + bwd_cases + [cast]:
         emit({"phase": "kernel", **c})
@@ -1284,6 +1572,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     emit(train_parity(torch, np, dev, args.seed))
     emit(spec_parity(torch, np, dev, args.seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_params, mla_eng, mla_prompts, mla_srv = mla_serve(
+        torch, np, dev, args.seed, spec_k=0)
+    emit(mla_srv)
+    emit({**profile_decode(torch, np, mla_eng, mla_prompts, args.seed),
+          "phase": "mla_profile"})
+    del mla_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, _, mla_spec = mla_serve(torch, np, dev, args.seed, spec_k=SPEC_K,
+                                  params=mla_params)
+    emit(mla_spec)
+    del mla_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(mla_parity(torch, np, dev, args.seed))
 
     # the training run's launches, each kernel timed at that run's shapes
     meta = {
@@ -1318,6 +1623,21 @@ def main() -> None:
         "bound_ms": spec_verify["bound_ms"],
         "bound_by": spec_verify["bound_by"],
         "library_ms": spec_verify["library_ms"]})
+    # the MLA kernel: its decode case with phase 11's launches, its verify
+    # case with phase 12's (bf16, the serving shapes)
+    for name, replaces, c, run in (
+            ("paged_mla_decode_attention", 277, mla["decode_serve_bfloat16"],
+             mla_srv),
+            ("paged_mla_verify_attention", 301, mla["verify_spec_bfloat16"],
+             mla_spec)):
+        row.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_mla_attention.cu",
+            "replaces": f"src/repro/kernels/decode_attention.py:{replaces}",
+            "launches": run["launches"][name],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     emit({"kernels": row})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

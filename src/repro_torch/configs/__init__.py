@@ -1,16 +1,19 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
-Only the architectures whose whole serving path is ported are registered;
-``get_config`` raises on every other id of the JAX registry.
+Only the architectures the port runs in some form are registered;
+``get_config`` raises on every other id of the JAX registry. The
+deepseek-v2-lite config is registered as published (MoE on), which the
+support matrix refuses; its attention is served with MoE off.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig, RLConfig
+from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _dsv2lite
 from repro_torch.configs.llama3p2_3b import CONFIG as _llama32
 
-REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (_llama32,)}
+REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (_dsv2lite, _llama32)}
 
 ARCH_IDS = tuple(REGISTRY)
 
@@ -24,8 +27,9 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """CPU-smoke-testable variant of the same family: 2 layers,
-    d_model <= 256, 64-wide heads, f32 (the dense branch of the JAX
-    package's ``reduced_config``)."""
+    d_model <= 256, 64-wide heads, f32, and <= 4 experts or a 64-rank
+    latent where the config has them (the dense, MoE and MLA branches of
+    the JAX package's ``reduced_config``)."""
     heads = min(cfg.num_heads, 4) if cfg.num_heads else 0
     kv = min(cfg.num_kv_heads, max(1, heads // 2)) if heads else 0
     if heads and heads % max(kv, 1):
@@ -44,6 +48,18 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
+    if cfg.num_experts > 0:
+        kw.update(
+            num_experts=4,
+            num_experts_per_tok=2,
+            num_shared_experts=min(cfg.num_shared_experts, 1),
+            moe_d_ff=128,
+            first_k_dense=min(cfg.first_k_dense, 1),
+            dense_d_ff=256 if cfg.first_k_dense else 0,
+        )
+    if cfg.use_mla:
+        kw.update(kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16,
+                  v_head_dim=32, head_dim=48)
     if cfg.sliding_window is not None:
         kw["sliding_window"] = 32
     return dataclasses.replace(cfg, **kw)

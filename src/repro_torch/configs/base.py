@@ -2,8 +2,9 @@
 
 ``ModelConfig`` keeps the fields the ported paths read plus the capability
 fields the support matrix needs to reject what the port does not run yet
-(MLA, MoE, SSM/hybrid, enc-dec, VLM, sliding windows). ``RLConfig`` keeps
-the fields the periodic-async GRPO pipeline reads.
+(MoE, SSM/hybrid, enc-dec, VLM, sliding windows, MLA training and the radix
+cache on MLA). ``RLConfig`` keeps the fields the periodic-async GRPO
+pipeline reads.
 """
 from __future__ import annotations
 
@@ -30,10 +31,24 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 
-    # capability fields (read by engine_support) --------------------------
+    # attention variants ---------------------------------------------------
     sliding_window: Optional[int] = None   # None -> full causal
-    use_mla: bool = False
-    num_experts: int = 0
+    use_mla: bool = False                  # DeepSeek-V2 multi-head latent attention
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0                   # 0 -> full-rank q projection
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    # MoE (refused by engine_support while num_experts > 0) -----------------
+    num_experts: int = 0                   # 0 -> dense FFN
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0                      # per-expert hidden size
+    first_k_dense: int = 0                 # leading dense layers (DeepSeek-V2)
+    dense_d_ff: int = 0                    # d_ff of those dense layers
+
+    # other capability fields (read by engine_support) ----------------------
     ssm_state_size: int = 0
     hybrid: bool = False
     is_encoder_decoder: bool = False
@@ -63,25 +78,38 @@ class ModelConfig:
 ROLLOUT_ENGINES = ("group", "paged")
 SPEC_PLANE = "spec"
 PREFIX_PLANE = "prefix"
+TRAIN_PLANE = "train"
+_PLANES = (SPEC_PLANE, PREFIX_PLANE, TRAIN_PLANE)
 
 _NOT_YET = "not ported to PyTorch yet (ROADMAP.md Queue 1)"
 
 
 def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
     """(supported, reason) for running ``cfg`` on ``engine`` in the port:
-    the paged engine serves the dense GQA family, and the spec and prefix
-    planes ride on it there; every other family waits for later slices."""
-    if engine in (SPEC_PLANE, PREFIX_PLANE):
+    the paged engine serves the dense GQA family and MLA with MoE off; the
+    spec plane rides on it for both, the prefix plane and training (the
+    ``"train"`` plane, which ``build_pipeline`` asks) for GQA only; every
+    other family waits for later slices."""
+    if engine in _PLANES:
         ok, reason = engine_support(cfg, "paged")
         if not ok:
             return ok, reason
         if engine == SPEC_PLANE:
             return True, ("a rejected draft's speculative pages roll back "
                           "to the freelist")
-        return True, "cached prompt pages are shared across requests"
+        if engine == PREFIX_PLANE:
+            if cfg.use_mla:
+                return False, ("radix cache on MLA latent pages: a later "
+                               "slice (ROADMAP.md Queue 1)")
+            return True, "cached prompt pages are shared across requests"
+        if cfg.use_mla:
+            return False, ("MLA training (the expanded attention's backward "
+                           "and the tri-model step): a later slice "
+                           "(ROADMAP.md Queue 1)")
+        return True, "the SPA kernel and its backward carry training"
     if engine not in ROLLOUT_ENGINES:
         raise KeyError(f"unknown engine {engine!r}; known: "
-                       f"{ROLLOUT_ENGINES + (SPEC_PLANE, PREFIX_PLANE)}")
+                       f"{ROLLOUT_ENGINES + _PLANES}")
     if engine == "group":
         return False, ("the group-at-a-time Sampler engine is " + _NOT_YET
                        + "; rollouts run on the paged engine")
@@ -89,13 +117,12 @@ def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
         return False, "SSM/hybrid recurrent state is " + _NOT_YET
     if cfg.is_encoder_decoder or cfg.vision_prefix_len:
         return False, "enc-dec and VLM prefixes are " + _NOT_YET
-    if cfg.use_mla:
-        return False, ("MLA latent pages and their decode kernels are "
-                       + _NOT_YET)
-    if cfg.num_experts or cfg.family != "dense":
+    if cfg.num_experts > 0:
         return False, "MoE feed-forward is " + _NOT_YET
     if cfg.sliding_window is not None:
         return False, ("sliding-window page reclamation is " + _NOT_YET)
+    if cfg.use_mla:
+        return True, "pages hold (ckv, kr) latent rows (MLA, MoE off)"
     return True, "pages hold per-head K/V rows (dense GQA)"
 
 

@@ -439,11 +439,21 @@ class PagedGroupEngine:
     # -- host API -----------------------------------------------------------
 
     def set_params(self, params) -> None:
-        """Swap weights (iteration-boundary sync). Must be quiescent."""
+        """Swap weights (iteration-boundary sync). Must be quiescent.
+
+        The radix tree is dropped: its pages hold K/V written under the
+        previous weights, and a warm admission under the new ones would
+        attend to them (the JAX engine keeps its tree across a swap; the
+        port departs from it here on purpose)."""
         with self._mutex:
             if not self.sched.idle:
                 raise RuntimeError("weight sync while rollouts are in flight "
                                    "breaks Proposition 1")
+            if self.radix is not None and self.radix.cached_pages:
+                # quiescent: the tree holds each cached page's only reference
+                self.prefix_evicted_pages += self.alloc.release(
+                    self.radix.pages())
+                self.radix = RadixCache(self.page, self.alloc)
             self.params = params
             # f32 LM head, as the JAX engine computes next-token logits
             # (an f32 copy for bf16 weights: 1.5 GB at llama3.2-3b width)

@@ -2,7 +2,7 @@
 (decode) or S queries per row, each masked by its own position (the
 spec-decode verify block and the radix cache's suffix prefill).
 
-Two CUDA kernels serve four wrappers:
+Three CUDA kernels serve six wrappers:
 
   * ``paged_decode_attention`` launches ``csrc/paged_decode_attention.cu``
     (one query per row over the page pool);
@@ -11,7 +11,12 @@ Two CUDA kernels serve four wrappers:
   * ``decode_attention`` and ``verify_attention`` take a contiguous
     (B, L, Hkv, D) cache and launch the same two kernels through a
     zero-copy view of it as a pool: one page of length L per row, the
-    positions as that page's positions, and row b's table [b].
+    positions as that page's positions, and row b's table [b];
+  * ``paged_mla_decode_attention`` (one query per row) and
+    ``paged_mla_verify_attention`` (S per row) launch
+    ``csrc/paged_mla_attention.cu``: absorbed MLA attention over the
+    paged LATENT pool, which is MQA (Hkv = 1, G = H) with K = [ckv | kr]
+    (Dk = r + rd) and V = ckv (Dv = r); the caller passes MLA's scale.
 
 Each kernel walks the row's page table itself. CPU tensors take the plain
 versions (``*_plain``), which gather each row's pages into a contiguous
@@ -43,6 +48,13 @@ _DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
 # the same with S after B
 _VERIFY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_void_p]
+# (r, rd) latent widths the MLA kernel is built for: full-width and reduced
+# deepseek-v2-lite
+_MLA_SHAPES = ((512, 64), (64, 16))
+# q, ckv_pages, kr_pages, pos_pages, page_table, q_pos, out; B, S, H, r, rd,
+# page, n_max, dtype, window; scale; stream
+_MLA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def gather_pages(k_pages, v_pages, pos_pages, page_table):
@@ -54,6 +66,19 @@ def gather_pages(k_pages, v_pages, pos_pages, page_table):
     k = k_pages[idx].reshape(B, n_max * page, *k_pages.shape[2:])
     v = v_pages[idx].reshape(B, n_max * page, *v_pages.shape[2:])
     return k, v, pos_pages[idx].reshape(B, n_max * page)
+
+
+def gather_latent_pages(ckv_pages, kr_pages, pos_pages, page_table):
+    """Latent pools (P, page, r) / (P, page, rd) + (B, n_max) tables ->
+    MQA-shaped keys (B, L, 1, r + rd) = [ckv | kr], values (B, L, 1, r) =
+    ckv, and positions (B, L)."""
+    B, n_max = page_table.shape
+    page = pos_pages.shape[1]
+    idx = page_table.long()
+    ckv = ckv_pages[idx].reshape(B, n_max * page, ckv_pages.shape[-1])
+    kr = kr_pages[idx].reshape(B, n_max * page, kr_pages.shape[-1])
+    k = torch.cat([ckv, kr], dim=-1)[:, :, None, :]
+    return k, ckv[:, :, None, :], pos_pages[idx].reshape(B, n_max * page)
 
 
 def verify_attention_plain(q, k, v, kv_pos, q_pos, *,
@@ -91,6 +116,28 @@ def paged_decode_attention_plain(q, k_pages, v_pages, pos_pages, page_table,
     per row."""
     k, v, kv_pos = gather_pages(k_pages, v_pages, pos_pages, page_table)
     return decode_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
+                                  window=window)
+
+
+def paged_mla_decode_attention_plain(q, ckv_pages, kr_pages, pos_pages,
+                                     page_table, q_pos, *, scale: float,
+                                     window: Optional[int] = None):
+    """Plain version: gather the latent pages, then masked attention of one
+    query per row with K = [ckv | kr] and V = ckv."""
+    k, v, kv_pos = gather_latent_pages(ckv_pages, kr_pages, pos_pages,
+                                       page_table)
+    return decode_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
+                                  window=window)
+
+
+def paged_mla_verify_attention_plain(q, ckv_pages, kr_pages, pos_pages,
+                                     page_table, q_pos, *, scale: float,
+                                     window: Optional[int] = None):
+    """Plain version: gather the latent pages, then masked attention of S
+    queries per row, each at its own position."""
+    k, v, kv_pos = gather_latent_pages(ckv_pages, kr_pages, pos_pages,
+                                       page_table)
+    return verify_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
                                   window=window)
 
 
@@ -237,3 +284,110 @@ def verify_attention(q, k, v, kv_pos, q_pos, *, scale: Optional[float] = None,
                                       window=window)
     return paged_verify_attention(q, *_as_pool(k, v, kv_pos), q_pos,
                                   scale=scale, window=window)
+
+
+def _check_mla_cuda(name, q, ckv_pages, kr_pages, pos_pages, page_table,
+                    q_pos, window):
+    """The MLA kernel's input contract; q is (B, [S,] H, r + rd), q_pos
+    (B, [S])."""
+    if ckv_pages.dim() != 3 or kr_pages.dim() != 3 \
+            or ckv_pages.shape[:2] != kr_pages.shape[:2]:
+        raise ValueError(f"{name}: latent pages must be (P, page, r) and "
+                         f"(P, page, rd), got {tuple(ckv_pages.shape)}/"
+                         f"{tuple(kr_pages.shape)}")
+    P, page, r = ckv_pages.shape
+    rd = kr_pages.shape[-1]
+    if (r, rd) not in _MLA_SHAPES or q.shape[-1] != r + rd:
+        raise ValueError(f"{name} kernel is built for (r, rd) in "
+                         f"{_MLA_SHAPES} with q of width r + rd, got "
+                         f"({r}, {rd}) and q {q.shape[-1]}")
+    if q.dtype not in _DTYPES or ckv_pages.dtype != q.dtype \
+            or kr_pages.dtype != q.dtype:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 of one "
+                        f"dtype, got {q.dtype}/{ckv_pages.dtype}/"
+                        f"{kr_pages.dtype}")
+    if page_table.dim() != 2:
+        raise TypeError(f"{name}: page_table must be (B, n_max)")
+    B = q.shape[0]
+    for arg, t, shape in (("pos_pages", pos_pages, (P, page)),
+                          ("page_table", page_table,
+                           (B, page_table.shape[-1])),
+                          ("q_pos", q_pos, tuple(q.shape[:-2]))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise TypeError(f"{name}: {arg} must be int32 {shape}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    for t in (q, ckv_pages, kr_pages, pos_pages, page_table, q_pos):
+        if t.device != q.device:
+            raise ValueError(f"{name}: all inputs must be on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous inputs")
+    for t in (ckv_pages, kr_pages):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel reads latent pages 16 bytes at "
+                             f"a time: their storage must be 16-byte aligned")
+    if window is not None and window <= 0:
+        raise ValueError(f"{name}: window must be positive, got {window}")
+
+
+def _launch_mla(name, q, ckv_pages, kr_pages, pos_pages, page_table, q_pos,
+                scale, window):
+    """Both MLA wrappers launch the one kernel; q is (B, S, H, r + rd)."""
+    _check_mla_cuda(name, q, ckv_pages, kr_pages, pos_pages, page_table,
+                    q_pos, window)
+    B, S, H, _ = q.shape
+    page, r = ckv_pages.shape[1], ckv_pages.shape[2]
+    out = torch.empty((B, S, H, r), dtype=q.dtype, device=q.device)
+    launch = build.entry("paged_mla_attention", "paged_mla_attention_launch",
+                         _MLA_ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    launch(build.ptr(q), build.ptr(ckv_pages), build.ptr(kr_pages),
+           build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
+           build.ptr(out), B, S, H, r, kr_pages.shape[-1], page,
+           page_table.shape[1], _DTYPES[q.dtype], window or 0, float(scale),
+           ctypes.c_void_p(stream))
+    count_launch(name)
+    return out
+
+
+def paged_mla_decode_attention(q, ckv_pages, kr_pages, pos_pages, page_table,
+                               q_pos, *, scale: float,
+                               window: Optional[int] = None):
+    """Absorbed MLA decode over the paged latent pool. q: (B, H, r + rd)
+    latent-space queries (w_uk folded in); ckv_pages: (P, page, r);
+    kr_pages: (P, page, rd); pos_pages: (P, page) int32; page_table: (B,
+    n_max) int32; q_pos: (B,) int32. ``scale`` has no default: MLA's is
+    (nd + rd)^-0.5, not (r + rd)^-0.5. Returns (B, H, r) latent outputs in
+    q.dtype (the caller applies w_uv).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    name = "paged_mla_decode_attention"
+    if not _device_route(name, q):
+        return paged_mla_decode_attention_plain(
+            q, ckv_pages, kr_pages, pos_pages, page_table, q_pos,
+            scale=scale, window=window)
+    if q.dim() != 3 or q_pos.dim() != 1:
+        raise ValueError(f"{name}: q must be (B, H, r + rd) and q_pos (B,)")
+    return _launch_mla(name, q[:, None], ckv_pages, kr_pages, pos_pages,
+                       page_table, q_pos[:, None], scale, window)[:, 0]
+
+
+def paged_mla_verify_attention(q, ckv_pages, kr_pages, pos_pages, page_table,
+                               q_pos, *, scale: float,
+                               window: Optional[int] = None):
+    """Absorbed MLA attention of S tokens per row over the paged latent
+    pool (the spec verify block): q: (B, S, H, r + rd), the S tokens'
+    latents already written into the pool; q_pos: (B, S) int32, each
+    token's own position; the rest as ``paged_mla_decode_attention``.
+    Returns (B, S, H, r).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    name = "paged_mla_verify_attention"
+    if not _device_route(name, q):
+        return paged_mla_verify_attention_plain(
+            q, ckv_pages, kr_pages, pos_pages, page_table, q_pos,
+            scale=scale, window=window)
+    if q.dim() != 4 or q_pos.dim() != 2:
+        raise ValueError(f"{name}: q must be (B, S, H, r + rd) and q_pos "
+                         f"(B, S)")
+    return _launch_mla(name, q, ckv_pages, kr_pages, pos_pages, page_table,
+                       q_pos, scale, window)

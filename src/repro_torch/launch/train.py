@@ -43,7 +43,10 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
     inference instances return scripted rollouts; otherwise each runs the
     paged engine. ``params`` (a tree in the model's layout, e.g. converted
     from the JAX package) replaces the random weights made from ``seed``.
-    Runs on ``device`` (CUDA unless the caller asks for the CPU)."""
+    Runs on ``device`` (CUDA unless the caller asks for the CPU); refuses
+    a config the port cannot train (``engine_support``'s train plane)."""
+    # repro: allow(support-matrix): the train plane is declared in the port's matrix (src/repro_torch/configs/base.py TRAIN_PLANE); the checker reads the JAX package's
+    require_engine_support(cfg, "train")
     dev = _device.resolve(device)
     tok = Tokenizer(cfg.vocab_size)
     task = ArithmeticTask(seed=seed, prompt_pad=prompt_pad)

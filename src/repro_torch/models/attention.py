@@ -1,4 +1,4 @@
-"""GQA attention and the KV-cache backends of the port.
+"""GQA and MLA attention and the KV-cache backends of the port.
 
 Masking is driven by (position, segment) arrays, as in the JAX package:
 causal ``kv_pos <= q_pos``, shared prompt ``kv_seg == 0 or kv_seg ==
@@ -10,6 +10,14 @@ the paged pool, one token per row calls the paged-decode wrapper and S > 1
 tokens per row (the spec verify block, the radix cache's suffix prefill)
 the paged-verify wrapper. Each wrapper launches its CUDA kernel for CUDA
 tensors and runs its plain version for CPU tensors.
+
+MLA (DeepSeek-V2) caches one latent row per token, ``(ckv, kr)``, instead
+of per-head K/V. Against the paged pool it attends in the latent space
+(absorbed: w_uk folded into q, w_uv applied to the latent output) through
+the paged MLA wrappers, S == 1 through ``paged_mla_decode_attention`` and
+S > 1 (the spec verify block) through ``paged_mla_verify_attention``.
+Prefill expands per-head K/V from the latent and runs plain PyTorch
+attention, as the JAX package does (``_mla_expanded``).
 
 Caches are updated IN PLACE (the JAX backends return new arrays): the
 paged pool is the engine's largest allocation, and a copy per step would
@@ -23,20 +31,27 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import (paged_decode_attention,
+                                                  paged_mla_decode_attention,
+                                                  paged_mla_verify_attention,
                                                   paged_verify_attention)
 from repro_torch.kernels.spa_attention import (allow_mask, chunked_attention,
                                                spa_attention)
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm
 
 INVALID_POS = 2 ** 30
 
 __all__ = ["INVALID_POS", "allow_mask", "chunked_attention", "cache_streams",
-           "DenseCacheBackend", "PagedCacheBackend", "gqa_attention"]
+           "DenseCacheBackend", "PagedCacheBackend", "gqa_attention",
+           "mla_attention", "attention"]
 
 
 def cache_streams(cfg: ModelConfig) -> Tuple[Tuple[str, tuple], ...]:
-    """What one cached token consists of: per-head K and V rows (the port
-    runs the GQA family only; MLA latent streams come with MLA)."""
+    """What one cached token consists of: per-head K and V rows (GQA), or
+    MLA's compressed latent and shared rope key; the layout backends below
+    are agnostic to which."""
+    if cfg.use_mla:
+        return (("ckv", (cfg.kv_lora_rank,)),
+                ("kr", (cfg.qk_rope_head_dim,)))
     return (("k", (cfg.num_kv_heads, cfg.head_dim)),
             ("v", (cfg.num_kv_heads, cfg.head_dim)))
 
@@ -136,6 +151,21 @@ def _paged_gqa_decode(cfg: ModelConfig, q, k, v, positions, cache,
     return out, cache
 
 
+def _dense_prefill(cfg: ModelConfig, vals: tuple, positions, segments, cache,
+                   cache_offset):
+    """The context a prefill attends over: its own tokens, or (with a dense
+    cache) the cache after writing them from offset 0. Returns (*streams,
+    kv_pos, kv_seg)."""
+    if cache is None:
+        return (*vals, positions, segments)
+    if not (cache_offset is None or (isinstance(cache_offset, int)
+                                     and cache_offset == 0)):
+        raise ValueError("a dense cache is filled from offset 0 (prefill); "
+                         "decode runs on the paged pool")
+    be = DenseCacheBackend(cfg, cache["pos"].shape[1])
+    return be.read(be.write_prefill(cache, vals, positions, segments))
+
+
 def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
                   cache: Optional[dict] = None, cache_offset=None,
                   page_table=None):
@@ -157,18 +187,119 @@ def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
         out, cache = _paged_gqa_decode(cfg, q, k, v, positions, cache,
                                        cache_offset, page_table)
     else:
-        if cache is None:
-            kk, vv, kp, ks = k, v, positions, segments
-        else:
-            if not (cache_offset is None or (isinstance(cache_offset, int)
-                                             and cache_offset == 0)):
-                raise ValueError("a dense cache is filled from offset 0 "
-                                 "(prefill); decode runs on the paged pool")
-            be = DenseCacheBackend(cfg, cache["pos"].shape[1])
-            kk, vv, kp, ks = be.read(be.write_prefill(cache, (k, v),
-                                                      positions, segments))
+        kk, vv, kp, ks = _dense_prefill(cfg, (k, v), positions, segments,
+                                        cache, cache_offset)
         out = spa_attention(q, kk, vv, positions, kp, segments, ks,
                             window=cfg.sliding_window,
                             chunk_size=cfg.attn_chunk_size)
     out = out.reshape(B, S, H * hd) @ params["wo"]
     return out, cache
+
+
+# ---------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------
+
+def _mla_qckv(params, cfg: ModelConfig, x, positions):
+    """Per-head queries split into (nope, rope) parts, the normalised
+    latent ckv (B, S, r) and the shared rope key kr (B, S, rd)."""
+    B, S, _ = x.shape
+    H, nd, rd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (x @ params["wq"]).reshape(B, S, H, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rmsnorm(params["ckv_norm"], x @ params["w_dkv"], cfg.norm_eps)
+    kr = apply_rope((x @ params["w_kr"])[:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, kr
+
+
+def _absorbed_q(params, cfg: ModelConfig, q_nope, q_rope):
+    """Fold w_uk into q: (B, S, H, nd) -> (B, S, H, r + rd) latent-space
+    queries."""
+    w_uk = params["w_uk"].reshape(cfg.kv_lora_rank, cfg.num_heads,
+                                  cfg.qk_nope_head_dim)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+    return torch.cat([q_lat, q_rope], dim=-1)
+
+
+def _paged_mla_decode(params, cfg: ModelConfig, q_nope, q_rope, ckv, kr,
+                      positions, cache, cache_offset, page_table, scale):
+    """Absorbed MLA attention of S tokens per row against the paged latent
+    pool: write their (ckv, kr) rows in place, then attend in the (rank +
+    rope) latent space, every token masked by its own position. S == 1 is
+    a decode step, S > 1 the spec verify block. Returns (o_lat (B, S, H,
+    r), cache)."""
+    PagedCacheBackend(cfg, cache["pos_pages"].shape[1]).write_decode(
+        cache, (ckv, kr), positions, cache_offset)
+    q_cat = _absorbed_q(params, cfg, q_nope, q_rope)          # (B,S,H,r+rd)
+    pools = (cache["ckv_pages"], cache["kr_pages"], cache["pos_pages"],
+             page_table)
+    if q_cat.shape[1] == 1:
+        o_lat = paged_mla_decode_attention(
+            q_cat[:, 0], *pools, positions[:, 0], scale=scale,
+            window=cfg.sliding_window)[:, None]
+    else:
+        o_lat = paged_mla_verify_attention(q_cat, *pools, positions,
+                                           scale=scale,
+                                           window=cfg.sliding_window)
+    return o_lat, cache
+
+
+def _mla_expanded(params, cfg: ModelConfig, q_nope, q_rope, ckv_all, kr_all,
+                  positions, kv_pos, segments, kv_seg, scale):
+    """Prefill attention: per-head K/V expanded from the latent, then
+    masked attention in plain PyTorch (``chunked_attention``). This is not
+    a fallback for a missing kernel: the JAX package computes MLA prefill
+    and training attention the same way, in plain jnp outside any Pallas
+    kernel (``mla_attention``'s expanded branch), so there is no TPU
+    kernel here to port, and the SPA kernel takes only Dk == Dv in {64,
+    128} while this path has Dk = nd + rd and Dv = vd."""
+    B, L, _ = ckv_all.shape
+    H, nd = cfg.num_heads, cfg.qk_nope_head_dim
+    k_nope = (ckv_all @ params["w_uk"]).reshape(B, L, H, nd)
+    v = (ckv_all @ params["w_uv"]).reshape(B, L, H, cfg.v_head_dim)
+    k = torch.cat([k_nope, kr_all[:, :, None, :].expand(
+        B, L, H, cfg.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return chunked_attention(q, k, v, positions, kv_pos, segments, kv_seg,
+                             window=cfg.sliding_window,
+                             chunk_size=cfg.attn_chunk_size, scale=scale)
+
+
+def mla_attention(params, cfg: ModelConfig, x, positions, segments, *,
+                  cache: Optional[dict] = None, cache_offset=None,
+                  page_table=None):
+    """x: (B, S, d). Against the paged latent pool (``cache`` one, with
+    flat write slots and a page table): the absorbed path through the
+    paged MLA kernels, so the pool stores only ckv + kr per token (the
+    MLA memory win). Otherwise (no cache, or a dense cache filled from
+    offset 0): the expanded prefill.
+
+    The softmax scale is (nd + rd)^-0.5 and is passed to the kernels
+    explicitly: their default, D^-0.5 with D = r + rd, is not MLA's.
+    Returns (out, cache)."""
+    B, S, _ = x.shape
+    H, vd, r = cfg.num_heads, cfg.v_head_dim, cfg.kv_lora_rank
+    q_nope, q_rope, ckv, kr = _mla_qckv(params, cfg, x, positions)
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    if cache is not None and is_paged_cache(cache):
+        o_lat, cache = _paged_mla_decode(params, cfg, q_nope, q_rope, ckv,
+                                         kr, positions, cache, cache_offset,
+                                         page_table, scale)
+        out = torch.einsum("bshr,rhv->bshv", o_lat,
+                           params["w_uv"].reshape(r, H, vd))
+    else:
+        ckv_all, kr_all, kp, ks = _dense_prefill(cfg, (ckv, kr), positions,
+                                                 segments, cache,
+                                                 cache_offset)
+        out = _mla_expanded(params, cfg, q_nope, q_rope, ckv_all, kr_all,
+                            positions, kp, segments, ks, scale)
+    out = out.reshape(B, S, H * vd) @ params["wo"]
+    return out, cache
+
+
+def attention(params, cfg: ModelConfig, x, positions, segments, **kw):
+    """The block's attention: MLA or GQA by the config."""
+    fn = mla_attention if cfg.use_mla else gqa_attention
+    return fn(params, cfg, x, positions, segments, **kw)

@@ -1,5 +1,6 @@
-"""Dense decoder-only LM: parameter layout, init, block and whole-model
-forward, and the cache constructors.
+"""Decoder-only LM with a SwiGLU FFN in every layer and GQA or MLA
+attention: parameter layout, init, block and whole-model forward, and the
+cache constructors.
 
 Parameters are a nested dict with the JAX package's layout: every layer
 leaf is stacked with a leading L axis (``layers``), beside ``embed`` and
@@ -15,16 +16,31 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, require_engine_support
 from repro_torch.models.attention import (DenseCacheBackend,
-                                          PagedCacheBackend, gqa_attention)
+                                          PagedCacheBackend, attention)
 from repro_torch.models.layers import (dense_init, dtype_of, embed, mlp,
                                        rmsnorm)
+
+
+def _attn_shapes(cfg: ModelConfig) -> dict:
+    """One layer's attention leaves: GQA's four projections, or MLA's
+    (JAX ``init_mla``: no q-LoRA, the latent's norm, the up-projections
+    w_uk / w_uv that absorbed decode folds into q and out)."""
+    d, H = cfg.d_model, cfg.num_heads
+    if cfg.use_mla:
+        r, nd = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+        rd, vd = cfg.qk_rope_head_dim, cfg.v_head_dim
+        return {"wq": (d, H * (nd + rd)), "w_dkv": (d, r), "w_kr": (d, rd),
+                "ckv_norm": (r,), "w_uk": (r, H * nd), "w_uv": (r, H * vd),
+                "wo": (H * vd, d)}
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"wq": (d, H * hd), "wk": (d, Hkv * hd), "wv": (d, Hkv * hd),
+            "wo": (H * hd, d)}
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes — one source for ``init_model`` and
     ``convert``'s checks."""
-    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    L, ff = cfg.num_layers, cfg.d_ff
+    d, L, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
     embed_p = {"embedding": (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         embed_p["lm_head"] = (d, cfg.vocab_size)
@@ -33,8 +49,7 @@ def param_shapes(cfg: ModelConfig) -> dict:
         "final_norm": {"scale": (d,)},
         "layers": {
             "ln1": {"scale": (L, d)},
-            "attn": {"wq": (L, d, H * hd), "wk": (L, d, Hkv * hd),
-                     "wv": (L, d, Hkv * hd), "wo": (L, H * hd, d)},
+            "attn": {k: (L,) + v for k, v in _attn_shapes(cfg).items()},
             "ln2": {"scale": (L, d)},
             "mlp": {"w_gate": (L, d, ff), "w_up": (L, d, ff),
                     "w_down": (L, ff, d)},
@@ -44,13 +59,14 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 def init_model(cfg: ModelConfig, *, seed: int, device) -> dict:
     """Random weights made directly on ``device`` from one seeded
-    generator: norms are ones, the embedding N(0, 0.02), every projection
-    a truncated-normal fan-in init (fan-in = the input axis)."""
+    generator: norms (MLA's ``ckv_norm`` too) are ones, the embedding
+    N(0, 0.02), every projection a truncated-normal fan-in init (fan-in =
+    the input axis)."""
     dt = dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def make(name: str, shape: tuple, stacked: bool):
-        if name == "scale":
+        if name in ("scale", "ckv_norm"):
             return torch.ones(shape, dtype=dt, device=device)
         if name == "embedding":
             return (torch.randn(shape, generator=gen, device=device)
@@ -81,9 +97,10 @@ def _block_hidden(bp: dict, cfg: ModelConfig, x, positions, segments):
 def block_forward(bp: dict, cfg: ModelConfig, x, positions, segments, *,
                   cache: Optional[dict] = None, cache_offset=None,
                   page_table=None):
-    """Pre-norm attention + SwiGLU block. Returns (x_out, cache)."""
+    """Pre-norm attention (GQA or MLA) + SwiGLU block. Returns (x_out,
+    cache)."""
     h = rmsnorm(bp["ln1"]["scale"], x, cfg.norm_eps)
-    attn_out, kv = gqa_attention(
+    attn_out, kv = attention(
         bp["attn"], cfg, h, positions, segments,
         cache=None if cache is None else cache["kv"],
         cache_offset=cache_offset, page_table=page_table)

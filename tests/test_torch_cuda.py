@@ -19,7 +19,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain, paged_decode_attention,
-    paged_decode_attention_plain, paged_verify_attention,
+    paged_decode_attention_plain, paged_mla_decode_attention,
+    paged_mla_decode_attention_plain, paged_mla_verify_attention,
+    paged_mla_verify_attention_plain, paged_verify_attention,
     paged_verify_attention_plain, verify_attention, verify_attention_plain)
 from repro_torch.kernels.spa_attention import (  # noqa: E402
     _forward_kernel, chunked_attention, spa_attention, spa_attention_bwd,
@@ -405,3 +407,102 @@ def test_reduced_spec_engine_on_card_matches_cpu(dev):
     def toks(done):
         return {c.request_id: c.response_ids.tolist() for c in done}
     assert toks(gpu) == toks(cpu) == toks(plain)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,r,rd,page,lens,window", [
+    (3, 1, 4, 64, 16, 4, (6, 17, 9), None),              # reduced, decode
+    (3, 4, 4, 64, 16, 4, (6, 17, 9), None),              # reduced, verify
+    (4, 1, 16, 512, 64, 16, (64, 400, 1088, 700), None),  # serving decode
+    (4, 5, 16, 512, 64, 16, (100, 1060, 517, 64), None),  # spec verify
+    (2, 5, 16, 512, 64, 16, (300, 777), 128),             # windowed
+])
+def test_paged_mla_kernel_matches_plain(dev, dtype, B, S, H, r, rd, page,
+                                        lens, window):
+    """Both MLA wrappers launch the one kernel; S == 1 through the decode
+    wrapper (row 0 then an inactive slot at pos 2^30), S > 1 through the
+    verify wrapper; MLA's scale (nd + rd)^-0.5."""
+    rng = np.random.RandomState(4)
+    P, pos, table, q_pos = _verify_pool(rng, B, S, page, lens)
+    dt = getattr(torch, dtype)
+    scale = (r // 4 + rd) ** -0.5
+
+    def t(a, float_=False):
+        x = torch.from_numpy(np.asarray(a)).to(dev)
+        return x.to(dt) if float_ else x
+    q = t(rng.randn(B, S, H, r + rd).astype(np.float32), True)
+    pools = (t(rng.randn(P, page, r).astype(np.float32), True),
+             t(rng.randn(P, page, rd).astype(np.float32), True),
+             t(pos), t(table))
+    if S == 1:
+        name, fn, plain = ("paged_mla_decode_attention",
+                           paged_mla_decode_attention,
+                           paged_mla_decode_attention_plain)
+        args = (q[:, 0].contiguous(), *pools, t(q_pos[:, 0].copy()))
+    else:
+        name, fn, plain = ("paged_mla_verify_attention",
+                           paged_mla_verify_attention,
+                           paged_mla_verify_attention_plain)
+        args = (q, *pools, t(q_pos))
+    n0 = dict(LAUNCHES)
+    got = fn(*args, scale=scale, window=window)
+    assert LAUNCHES[name] == n0[name] + 1
+    assert sum(LAUNCHES.values()) == sum(n0.values()) + 1
+    want = plain(*_f32(*args), scale=scale, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == args[0].shape[:-1] + (r,)
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+def test_paged_mla_kernel_refuses_unbuilt_shapes(dev):
+    q = torch.zeros((2, 1, 4, 72), device=dev)
+    ckv = torch.zeros((3, 4, 56), device=dev)
+    kr = torch.zeros((3, 4, 16), device=dev)
+    pos = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    tab = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    qp = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="built for"):
+        paged_mla_verify_attention(q, ckv, kr, pos, tab, qp, scale=0.1)
+    q = torch.zeros((2, 1, 4, 80), device=dev, dtype=torch.float16)
+    ckv = torch.zeros((3, 4, 64), device=dev, dtype=torch.float16)
+    kr = torch.zeros((3, 4, 16), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        paged_mla_verify_attention(q, ckv, kr, pos, tab, qp, scale=0.1)
+
+
+def test_reduced_mla_engine_on_card_matches_cpu(dev):
+    """Greedy serving of reduced mla_dense (f32), spec off and on:
+    identical tokens on the card (the MLA kernel) and on the CPU (plain
+    versions)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import serve_paged
+    from repro_torch.models import init
+    cfg = reduced_config(dataclasses.replace(
+        get_config("deepseek-v2-lite-16b"), num_experts=0,
+        num_experts_per_tok=0, num_shared_experts=0, moe_d_ff=0,
+        first_k_dense=0, dense_d_ff=0))
+    p_cpu = init(cfg, seed=0, device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(3, 500, size=(n,)).astype(np.int32)
+               for n in (5, 19, 33)]
+    kw = dict(max_prompt_len=40, max_new=8, num_slots=2, page_size=8,
+              temperature=0.0, seed=0)
+    out = []
+    for spec_k in (0, 3):
+        n0 = dict(LAUNCHES)
+        gpu, _ = serve_paged(cfg, prompts, device=dev, params=to(p_cpu),
+                             spec_k=spec_k, **kw)
+        name = ("paged_mla_verify_attention" if spec_k
+                else "paged_mla_decode_attention")
+        assert LAUNCHES[name] > n0[name]
+        cpu, _ = serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+                             spec_k=spec_k, **kw)
+        toks = [c.response_ids.tolist() for c in gpu]
+        assert toks == [c.response_ids.tolist() for c in cpu]
+        out.append(sorted(map(tuple, toks)))
+    assert out[0] == out[1]

@@ -44,10 +44,15 @@ def test_port_scan_covers_the_package():
     assert {"paged.py", "serve.py", "spa_attention.py",
             "decode_attention.py", "chip_smoke.py", "train.py",
             "scheduler.py", "service.py", "transfer_cast.py", "grpo.py",
-            "radix.py", "verify.py", "draft.py", "sampler.py"} <= names
+            "radix.py", "verify.py", "draft.py", "sampler.py",
+            "deepseek_v2_lite_16b.py", "attention.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"src/repro_torch/spec/__init__.py",
-            "src/repro_torch/core/radix.py"} <= rel
+            "src/repro_torch/core/radix.py",
+            "src/repro_torch/configs/deepseek_v2_lite_16b.py",
+            "src/repro_torch/models/attention.py"} <= rel
+    assert (ROOT / "src/repro_torch/kernels/csrc/paged_mla_attention.cu"
+            ).is_file()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -71,6 +76,10 @@ def test_entry_modules_import_with_jax_and_repro_blocked():
         "import repro_torch.spec.draft, repro_torch.spec.sampler\n"
         "import repro_torch.core.radix\n"
         "from repro_torch.launch.serve import serve_shared, serving_stats\n"
+        "from repro_torch.configs.deepseek_v2_lite_16b import CONFIG\n"
+        "from repro_torch.models.attention import mla_attention\n"
+        "from repro_torch.kernels.decode_attention import (\n"
+        "    paged_mla_decode_attention, paged_mla_verify_attention)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")

@@ -52,7 +52,7 @@ def test_reduced_config_matches_jax():
         jfull.num_layers, jfull.d_model, jfull.num_heads, jfull.num_kv_heads,
         jfull.head_dim, jfull.d_ff, jfull.vocab_size)
     with pytest.raises(KeyError, match="not ported"):
-        get_config("deepseek-v2-lite-16b")
+        get_config("mamba2-2.7b")
 
 
 def test_convert_round_trip(setup):

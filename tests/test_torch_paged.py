@@ -98,7 +98,7 @@ def test_admission_waits_for_pages(setup):
     (("mla", dict(spec_k=2, prefix_cache=True)), "MLA"),
     (("window", dict(spec_k=2)), "sliding-window"),
     ("window", "sliding-window"),
-    ("mla", "MLA"),
+    ("moe", "MoE"),
 ])
 def test_engine_rejects_unported_configs(change, match):
     cfg = reduced_config(get_config("llama3.2-3b"))
@@ -110,6 +110,8 @@ def test_engine_rejects_unported_configs(change, match):
         cfg = dataclasses.replace(cfg, sliding_window=32)
     elif change == "mla":
         cfg = dataclasses.replace(cfg, use_mla=True)
+    elif change == "moe":
+        cfg = dataclasses.replace(cfg, num_experts=4)
     else:
         kw.update(change)
     with pytest.raises(ValueError, match=match):

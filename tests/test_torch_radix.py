@@ -202,6 +202,39 @@ def test_warm_suffix_prefill_logits_match_cold(setup):
         pass
 
 
+def test_weight_flip_drops_the_tree(setup):
+    """After ``set_params`` to new weights, an admission that shares the
+    cached prefix gives the tokens and last-token logits of a cold
+    prefill under the new weights: the tree's pages, written under the
+    old weights, are released at the flip (the JAX engine keeps them).
+    A later request then hits pages written under the new weights."""
+    _, cfg, _, params = setup
+    from repro_torch.models import init
+    new_params = init(cfg, seed=1, device="cpu")
+    first, second, third = _prompts(3, tail=3)
+    eng = PagedGroupEngine(cfg, device="cpu", **_kw(prefix_cache=True))
+    eng.set_params(params)
+    _serve(eng, [first], [0])
+    assert eng.radix.cached_pages == 3 and eng.alloc.num_live == 3
+    eng.set_params(new_params)
+    assert eng.radix.cached_pages == 0 and eng.alloc.num_live == 0
+    assert eng.prefix_evicted_pages == 3
+    cold = PagedGroupEngine(cfg, device="cpu", **_kw())
+    cold.set_params(new_params)
+    logits = []
+    for e in (eng, cold):
+        h = e.submit(second, 1)
+        e.step()                               # admission: the prefill
+        logits.append(h._group.prompt_logits.clone())
+        while e.step():
+            pass
+    err = float((logits[0] - logits[1]).abs().max())
+    assert err < 1e-5, err
+    assert eng.warm_prefills == 0 and eng.prefix_hit_pages == 0
+    assert _serve(eng, [third], [2]) == _serve(cold, [third], [2])
+    assert eng.warm_prefills == 1 and eng.prefix_hit_pages == 3
+
+
 def test_tight_pool_evicts_idle_cached_pages(setup):
     """A pool too small to keep every cached prompt: the admission gate
     evicts idle cached pages on a deficit and every request still decodes
