@@ -23,7 +23,10 @@ Phases, each printing one JSON line (every phase fails the run on error):
      port never calls it), and the least time the card could take (bytes
      over 3.35 TB/s or operations over the dtype's peak, whichever is
      larger; operations count the (query, key) pairs these inputs make
-     visible). Each timed call starts with the 50 MB L2 cache flushed.
+     visible). Each timed call starts with the 50 MB L2 cache flushed and
+     a spin long enough that the host has queued the call before the card
+     reaches it (checked per call; a "timer" line counts the calls where
+     it could not be, see Timer).
      Paged verify (S query tokens per row, each at its own position) at
      the spec shape (B 4, S 5, contexts up to 1060; bf16 and f32), the
      rollout engine's (B 8, S 5, contexts up to 196, f32), a suffix
@@ -99,10 +102,13 @@ Phases, each printing one JSON line (every phase fails the run on error):
 
 Phases 8 and 9 run right after phase 4, on the same weights.
 
-Phase 2 also holds the SPA backward kernel against autograd of the plain
-version (full-width heads; a 1024-token prompt, an SPA-packed row, a
-windowed prompt and the training row's shape; f32 and bf16; two launches
-bitwise equal) and the transfer_cast kernel against x.to(torch.bfloat16),
+The SPA kernels run bf16 on the tensor cores (wgmma, with the
+probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
+(register tiles, no TF32). Phase 2 also holds the SPA backward kernel
+against autograd of the plain version (full-width heads; a 1024-token
+prompt, an SPA-packed row, a windowed prompt and the training row's shape;
+f32 and bf16; two launches bitwise equal; torch.profiler's device time by
+kernel for each, and of SDPA's backward beside it) and the transfer_cast kernel against x.to(torch.bfloat16),
 bitwise, on every leaf of the training tree, a misaligned ragged length
 and special values (ties, denormals, +-Inf, NaN). It also holds the MLA
 kernel (both of its wrappers) against its plain version at full-width
@@ -115,7 +121,9 @@ count each unique physical (page, slot) pair the call sees once.
 
 Then one line {"kernels": [...]} with seven entries: the four kernels of
 the training path at the training run's shapes and launch counts (phase
-6), paged_verify_attention at the spec shape with phase 8's launches,
+6; the two SPA entries also carry the bf16 1024-token prefill case, the
+serving shape, under "bf16_prefill"), paged_verify_attention at the spec
+shape with phase 8's launches,
 and the MLA kernel's decode case with phase 11's launches and its verify
 case with phase 12's; and last {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
@@ -146,6 +154,8 @@ TOL = {"bfloat16": {"rtol": 2.0 ** -7, "atol": 1e-5},
 # so summation-order noise scales with the tensor, not the element).
 GRAD_TOL = {"bfloat16": (2.0 ** -7, 1e-5), "float32": (2e-5, 2e-5)}
 FLUSH_BYTES = 64 << 20                     # > the H100's 50 MB L2
+SPIN_CYCLES = 200_000                      # ~0.1 ms at the H100's clock
+SPIN_CAP_CYCLES = SPIN_CYCLES << 5
 TRAIN_LAYERS = 12      # 36 bytes per f32 parameter at an update: 28 layers
 # (3.21 B parameters, ~116 GB) do not fit one 80 GB card, 12 (1.60 B) do
 TRAIN_PROMPT, TRAIN_GROUP, TRAIN_RESP = 128, 8, 64
@@ -167,27 +177,50 @@ def emit(obj: dict) -> None:
 class Timer:
     """CUDA-event time of one call, averaged over ``iters`` calls, each
     starting with the L2 cache flushed (the serving path reads 28 layers
-    of K/V and weights between two calls of the same layer's kernel)."""
+    of K/V and weights between two calls of the same layer's kernel).
+
+    A spin is queued after the flush so that the host has enqueued the
+    whole call before the card reaches the start event, and the host's
+    launch work is not counted as device time. Whether it did is checked
+    on every call: once the end event is queued, the start event must
+    still be pending. A call the spin did not cover is thrown away and
+    the spin doubled, up to SPIN_CAP_CYCLES; past that (a call that waits
+    on the host inside, such as a plain version reading a tensor back)
+    the call is kept, host time included, ``covered`` is False and the
+    function's name and line go into ``uncovered``."""
 
     def __init__(self, torch, device):
         self.torch = torch
         self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
                                  device=device)
+        self.covered = True          # of the last ms() call
+        self.uncovered = []          # the functions of such calls
 
     def ms(self, fn, iters: int) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(iters):
+        total, kept, spin, covered = 0.0, 0, SPIN_CYCLES, True
+        while kept < iters:
             self.flush.zero_()
+            torch.cuda._sleep(spin)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
+            ahead = not start.query()
             end.synchronize()
+            if not ahead and spin < SPIN_CAP_CYCLES:
+                spin *= 2
+                continue
+            covered = covered and ahead
             total += start.elapsed_time(end)
+            kept += 1
+        self.covered = covered
+        if not covered:
+            self.uncovered.append(
+                f"{fn.__qualname__}:{fn.__code__.co_firstlineno}")
         return total / iters
 
 
@@ -259,17 +292,42 @@ def spa_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
     bytes_moved = (q.numel() + k.numel() + v.numel() + got.numel()) * elt \
         + 4 * 4 * S
     b_ms, b_by = bound(bytes_moved, 4.0 * D * H * pairs, dtype)
+
+    def kernel():
+        return spa_attention(*args, window=window)
     return {
         "kernel": "spa_attention", "dtype": dtype, "B": 1, "S": S, "H": H,
         "Hkv": Hkv, "D": D, "prompt": prompt, "responses": responses,
         "resp_len": resp_len, "window": window, "visible_pairs": pairs,
         "max_abs_err": err, "tol": TOL[dtype], "ok": ok,
-        "ms": timer.ms(lambda: spa_attention(*args, window=window), 20),
+        "ms": timer.ms(kernel, 20),
         "plain_ms": timer.ms(lambda: chunked_attention(*args, window=window),
                              5),
         "library_ms": timer.ms(library, 5),
+        "library_covered": timer.covered,
+        # device time summed over kernels, L2 warm on both sides: a check
+        # on the event times that leaves out the host's launch work
+        "profile_ms": sum(device_ms_by_kernel(torch, kernel).values()),
+        "library_profile_ms": sum(device_ms_by_kernel(torch,
+                                                      library).values()),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+def device_ms_by_kernel(torch, fn, calls: int = 5) -> dict:
+    """Device time a call spends in each kernel, by name, over ``calls``
+    calls under torch.profiler (empty when the profiler sees no device
+    activity on this machine)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def spa_bwd_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
@@ -320,6 +378,14 @@ def spa_bwd_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
         + dout.numel() * elt + (o32.numel() + lse.numel()) * 4 + 4 * 4 * S
     # five products over visible pairs (S = QK, dP = dO V, dV, dK, dQ)
     b_ms, b_by = bound(bytes_moved, 10.0 * D * H * pairs, dtype)
+
+    def kernel():
+        return spa_attention_bwd(*args, o32, lse, dout, window=window)
+
+    def library():
+        return torch.autograd.grad(out_lib, lib, dout_t, retain_graph=True)
+    prof = device_ms_by_kernel(torch, kernel)
+    lib_prof = device_ms_by_kernel(torch, library)
     return {
         "kernel": "spa_attention_bwd", "dtype": dtype, "B": 1, "S": S,
         "H": H, "Hkv": Hkv, "D": D, "prompt": prompt,
@@ -327,14 +393,19 @@ def spa_bwd_case(torch, timer, dev, gen, dtype, *, prompt, responses=0,
         "visible_pairs": pairs, "max_abs_err": max(errs),
         "max_abs_err_dq_dk_dv": errs, "deterministic": deterministic,
         "tol": {"rtol": rtol, "atol_rel_to_max": atol_rel}, "ok": ok,
-        "ms": timer.ms(lambda: spa_attention_bwd(*args, o32, lse, dout,
-                                                 window=window), 10),
+        "ms": timer.ms(kernel, 10),
         "fwd_stats_ms": timer.ms(lambda: _forward_kernel(
             *args, scale, window, stats=True), 10),
+        # where the backward's device time goes: delta, the dq + dk/dv
+        # tiles, the ordered sum of the per-head dk/dv parts
+        "profile_ms_by_kernel": prof,
+        "profile_ms": sum(prof.values()),
         "plain_ms": timer.ms(lambda: torch.autograd.grad(
             out_plain, leaves, dout, retain_graph=True), 3),
-        "library_ms": timer.ms(lambda: torch.autograd.grad(
-            out_lib, lib, dout_t, retain_graph=True), 5),
+        "library_ms": timer.ms(library, 5),
+        "library_covered": timer.covered,
+        "library_profile_ms_by_kernel": lib_prof,
+        "library_profile_ms": sum(lib_prof.values()),
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -1481,8 +1552,11 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = []
     bwd_cases = []
+    prefill = {}                              # bf16 1024-token prompt
     for dtype in ("bfloat16", "float32"):
         cases.append(spa_case(torch, timer, dev, gen, dtype, prompt=1024))
+        if dtype == "bfloat16":
+            prefill["spa_attention"] = cases[-1]
         cases.append(spa_case(torch, timer, dev, gen, dtype, prompt=256,
                               responses=4, resp_len=128))
         cases.append(spa_case(torch, timer, dev, gen, dtype, prompt=1024,
@@ -1497,6 +1571,8 @@ def main() -> None:
             main_dec, spec_verify = dec, ver
         bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
                                       prompt=1024))
+        if dtype == "bfloat16":
+            prefill["spa_attention_bwd"] = bwd_cases[-1]
         bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
                                       prompt=256, responses=4, resp_len=128))
         bwd_cases.append(spa_bwd_case(torch, timer, dev, gen, dtype,
@@ -1507,6 +1583,10 @@ def main() -> None:
                          responses=TRAIN_GROUP, resp_len=1 + TRAIN_RESP)
     train_bwd = spa_bwd_case(torch, timer, dev, gen, "float32", prompt=120,
                              responses=TRAIN_GROUP, resp_len=1 + TRAIN_RESP)
+    # the same row in bf16 (the tensor-core backward at the training shape)
+    train_bwd_bf16 = spa_bwd_case(torch, timer, dev, gen, "bfloat16",
+                                  prompt=120, responses=TRAIN_GROUP,
+                                  resp_len=1 + TRAIN_RESP)
     train_dec = decode_case(torch, timer, dev, gen, "float32", B=8,
                             ctx_max=TRAIN_PROMPT + TRAIN_RESP)
     cast = cast_cases(torch, timer, dev, gen, train_config())
@@ -1537,9 +1617,13 @@ def main() -> None:
         torch, timer, dev, gen, "bfloat16", B=4, S=SPEC_K + 1, ctx_max=1060,
         window=256)
     cases += [{"case": k, **c} for k, c in mla.items()]
-    bwd_cases.append(train_bwd)
+    bwd_cases += [train_bwd, train_bwd_bf16]
     for c in cases + bwd_cases + [cast]:
         emit({"phase": "kernel", **c})
+    # calls whose event time still holds host time (see Timer)
+    emit({"phase": "timer", "spin_cycles": SPIN_CYCLES,
+          "spin_cap_cycles": SPIN_CAP_CYCLES,
+          "uncovered": timer.uncovered})
     bad = [c for c in cases + bwd_cases + [cast] if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel case(s) disagree with the plain version")
@@ -1604,13 +1688,15 @@ def main() -> None:
             "src/repro_torch/kernels/csrc/spa_attention_bwd.cu",
             "src/repro/kernels/spa_attention.py:104", train_bwd),
     }
+    timing = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
     row = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": train["launches"][name],
          "launches_serve": launches.get(name, 0),
-         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-         "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+         **{key: c[key] for key in timing},
+         **({"bf16_prefill": {key: prefill[name][key] for key in timing}}
+            if name in prefill else {})}
         for name, (src, rep, c) in meta.items()]
     # the spec serving run's launches, timed at its shape (bf16, B 4, S 5)
     row.append({

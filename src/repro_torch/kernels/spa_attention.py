@@ -35,9 +35,9 @@ _HEAD_DIMS = (64, 128)
 # D, dtype, window; scale; stream
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                           ctypes.c_void_p]
-# q, k, v, q_pos, kv_pos, q_seg, kv_seg, o32, lse, dout, delta, dq, dk, dv;
-# B, Sq, Skv, H, Hkv, D, dtype, window; scale; stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [
+# q, k, v, q_pos, kv_pos, q_seg, kv_seg, o32, lse, dout, delta, dk_part,
+# dv_part, dq, dk, dv; B, Sq, Skv, H, Hkv, D, dtype, window; scale; stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -172,11 +172,16 @@ def spa_attention_bwd(q, k, v, q_pos, kv_pos, q_seg, kv_seg, o32, lse, dout,
     scale = D ** -0.5 if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # each query head's unrounded part of dk and dv; the kernel sums the G
+    # parts of a KV head in a fixed order (no atomics) and rounds once
+    dk_part, dv_part = (torch.empty((B, Skv, H, D), dtype=torch.float32,
+                                    device=q.device) for _ in range(2))
     launch = build.entry("spa_attention_bwd", "spa_attention_bwd_launch",
                          _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     launch(*(build.ptr(t) for t in (q, k, v, q_pos, kv_pos, q_seg, kv_seg,
-                                    o32, lse, dout, delta, dq, dk, dv)),
+                                    o32, lse, dout, delta, dk_part, dv_part,
+                                    dq, dk, dv)),
            B, Sq, Skv, H, Hkv, D, _DTYPES[q.dtype], window or 0, scale,
            ctypes.c_void_p(stream))
     count_launch("spa_attention_bwd")

@@ -236,6 +236,60 @@ def test_spa_backward_kernel_matches_plain(dev, dtype, Lp, Lr, K, H, Hkv, D,
         _grad_close(g, w, dtype)
 
 
+def _spa_edge(dev, dtype, case):
+    """Inputs at the edges of the kernels' 64-row tiles (and the f32
+    kernels' 32-row ones): (q, k, v, q_pos, kv_pos, q_seg, kv_seg)."""
+    H, Hkv, D, Sq, Skv = {
+        "g1": (8, 8, 128, 100, 100), "g4": (32, 8, 64, 130, 130),
+        "g8": (8, 1, 128, 70, 70), "sq_ne_skv": (4, 2, 128, 77, 200),
+        "one_live_token": (4, 2, 64, 96, 96),
+        "masked_tile": (4, 2, 128, 192, 192)}[case]
+    rng = np.random.RandomState(7)
+    B = 2 if case == "one_live_token" else 1
+    kv_pos = np.tile(np.arange(Skv, dtype=np.int32), (B, 1))
+    q_pos = kv_pos[:, Skv - Sq:].copy()     # Sq < Skv: the last Sq keys' queries
+    kv_seg = np.zeros((B, Skv), np.int32)
+    q_seg = np.zeros((B, Sq), np.int32)
+    if case == "one_live_token":            # row 1 holds one token; the rest
+        q_pos[1, 1:] = -1                   # is padding that sees nothing
+        kv_pos[1, 1:] = 2 ** 30             # and is seen by nothing
+        q_seg[1, 1:] = kv_seg[1, 1:] = -1
+    if case == "masked_tile":               # query tile 64..127 sees no key
+        q_pos[0, 64:128] = -1
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.randn(B, s, h, D).astype(np.float32))
+               .to(dev, dt) for s, h in ((Sq, H), (Skv, Hkv), (Skv, Hkv)))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return q, k, v, t(q_pos), t(kv_pos), t(q_seg), t(kv_seg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["g1", "g4", "g8", "sq_ne_skv",
+                                  "one_live_token", "masked_tile"])
+def test_spa_kernels_at_tile_edges(dev, dtype, case):
+    """Forward and backward kernels at G 1, 4 and 8, lengths that are not
+    multiples of 64, Sq != Skv, a row with one live token and a query tile
+    that sees no key, against the plain versions run in f32."""
+    args = _spa_edge(dev, dtype, case)
+    q, D = args[0], args[0].shape[-1]
+    out, o32, lse = _forward_kernel(*args, D ** -0.5, None, stats=True)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    got = spa_attention_bwd(*args, o32, lse, dout)
+    again = spa_attention_bwd(*args, o32, lse, dout)
+    f = _f32(*args, dout)
+    want = chunked_attention(*f[:7])
+    want_g = spa_attention_bwd_plain(*f[:7], f[7])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want, **TOL[dtype])
+    for g, a, w in zip(got, again, want_g):
+        assert torch.equal(g, a)
+        _grad_close(g, w, dtype)
+    if case == "masked_tile":
+        assert float(out[0, 64:128].float().abs().max()) == 0.0
+        assert float(got[0][0, 64:128].float().abs().max()) == 0.0
+
+
 def test_spa_autograd_on_card_matches_cpu(dev):
     """The autograd Function (forward with stats, backward kernel) against
     autograd of the plain version on the CPU, with a row that sees no key."""

@@ -21,7 +21,7 @@ from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.spa_attention import (  # noqa: E402
-    chunked_attention, spa_attention)
+    allow_mask, chunked_attention, spa_attention, spa_attention_bwd_plain)
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
@@ -194,3 +194,109 @@ def test_launch_counts_are_not_lost_across_threads():
     assert not any(t.is_alive() for t in threads)
     assert LAUNCHES["transfer_cast"] == before + n_threads * per_thread
     LAUNCHES["transfer_cast"] = before
+
+
+# ---------------------------------------------------------------------------
+# Why the bf16 SPA kernels split P and dS into a bf16 hi + lo pair
+# ---------------------------------------------------------------------------
+
+# the bars chip_smoke.py and tests/test_torch_cuda.py hold the bf16 kernels
+# to: one bf16 ulp (2^-7 of the value) plus 1e-5; the gradients' atol is
+# relative to each tensor's largest entry
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+BF16_GRAD_TOL = (2.0 ** -7, 1e-5)
+
+
+def _tensor_core_operand(x, split):
+    """f32 ``x`` as the bf16 kernels feed it to a tensor-core product:
+    rounded once to bf16, or as the sum of hi = bf16(x) and lo = bf16(x -
+    hi) (both go through the product; hi + lo is exact in f32)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float() if split else hi
+
+
+def _heads(q, k, v):
+    G = q.shape[2] // k.shape[2]
+    return (q.permute(0, 2, 1, 3),
+            k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1),
+            v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1))
+
+
+def _emulated_forward(q, k, v, allow, split, tile=64):
+    """The bf16 forward kernel's arithmetic: f32 scores of bf16 inputs, an
+    online softmax over 64-key tiles, P rounded for P V, f32 accumulation,
+    one rounding of the output."""
+    qh, kh, vh = _heads(q, k, v)
+    scale = q.shape[-1] ** -0.5
+    B, H, Sq, D = qh.shape
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, kh.shape[2], tile):
+        ok = allow[:, None, :, k0:k0 + tile]
+        s = torch.where(ok, qh @ kh[:, :, k0:k0 + tile].transpose(-1, -2) * scale,
+                        -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + \
+            _tensor_core_operand(p, split) @ vh[:, :, k0:k0 + tile]
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _emulated_backward(q, k, v, allow, dout, split):
+    """The bf16 backward kernels' arithmetic: P and dS in f32 from bf16
+    inputs, rounded for the three gradient products, f32 sums over the G
+    heads of a KV head, one rounding of each gradient."""
+    qh, kh, vh = _heads(q, k, v)
+    gh = dout.permute(0, 2, 1, 3)
+    scale = q.shape[-1] ** -0.5
+    G = q.shape[2] // k.shape[2]
+    ok = allow[:, None]
+    s = torch.where(ok, qh @ kh.transpose(-1, -2) * scale, -1e30)
+    p = torch.where(ok, torch.exp(s - torch.logsumexp(s, -1, keepdim=True)), 0.0)
+    delta = (gh * (p @ vh)).sum(-1, keepdim=True)
+    ds = p * (gh @ vh.transpose(-1, -2) - delta)
+    pr, dsr = _tensor_core_operand(p, split), _tensor_core_operand(ds, split)
+
+    def kv_heads(x):                   # (B, H, S, D) -> (B, S, Hkv, D)
+        B, H, S, D = x.shape
+        return x.reshape(B, H // G, G, S, D).sum(2).permute(0, 2, 1, 3)
+    dq = (scale * dsr @ kh).permute(0, 2, 1, 3)
+    dk = kv_heads(scale * dsr.transpose(-1, -2) @ qh)
+    dv = kv_heads(pr.transpose(-1, -2) @ gh)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _within_grad_bar(got, want):
+    rtol, atol_rel = BF16_GRAD_TOL
+    err = (got.float() - want).abs()
+    return bool((err <= rtol * want.abs() + atol_rel * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("layout", [(512, 0, 0), (256, 64, 4)],
+                         ids=["prompt512", "packed"])
+def test_bf16_split_probabilities_meet_the_bar(layout):
+    """bf16 inputs at full-width heads (H 24, Hkv 8, D 128): P (forward)
+    and P and dS (backward) fed to the tensor cores as a bf16 hi + lo pair
+    meet the kernels' bars against the plain versions run in f32; rounded
+    once to bf16 they miss them, which is why the kernels split."""
+    Lp, Lr, K = layout
+    q, k, v, pos, seg = spa_layout(11, 1, Lp, Lr, K, 24, 8, 128)
+    rng = np.random.RandomState(12)
+    bf = [torch.from_numpy(a).to(torch.bfloat16).float()
+          for a in (q, k, v, rng.randn(*q.shape).astype(np.float32))]
+    tp, ts = torch.from_numpy(pos), torch.from_numpy(seg)
+    allow = allow_mask(tp, tp, ts, ts)
+    want = chunked_attention(*bf[:3], tp, tp, ts, ts)
+    want_g = spa_attention_bwd_plain(*bf[:3], tp, tp, ts, ts, bf[3])
+    fwd = {split: torch.allclose(_emulated_forward(*bf[:3], allow, split).float(),
+                                 want, **BF16_TOL) for split in (True, False)}
+    bwd = {split: [_within_grad_bar(g, w) for g, w in zip(
+        _emulated_backward(*bf[:3], allow, bf[3], split), want_g)]
+        for split in (True, False)}
+    assert fwd[True] and all(bwd[True])
+    assert not fwd[False] and not any(bwd[False])
