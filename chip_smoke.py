@@ -32,7 +32,10 @@ Phases, each printing one JSON line (every phase fails the run on error):
      rollout engine's (B 8, S 5, contexts up to 196, f32), a suffix
      prefill (B 1, 512 tokens after 512 cached, bf16) and a windowed
      case; the contiguous-cache decode_attention and verify_attention
-     wrappers (the same two kernels on a one-page-per-row view);
+     wrappers (the same two kernels on a one-page-per-row view). Each
+     decode / verify case also prints how the wrapper launched it (regime:
+     Split-L or query tiles; context splits; blocks of the main kernel)
+     and the share of its bound reached (bound_ms / ms);
   3. serve: full-width llama3.2-3b (28 layers, random bf16 weights made
      on the card from --seed) serves 8 requests (prompts of 64 to 1024
      tokens, 32 new tokens each, 4 slots, page 16, temperature 0.7)
@@ -123,7 +126,8 @@ Then one line {"kernels": [...]} with seven entries: the four kernels of
 the training path at the training run's shapes and launch counts (phase
 6; the two SPA entries also carry the bf16 1024-token prefill case, the
 serving shape, under "bf16_prefill"), paged_verify_attention at the spec
-shape with phase 8's launches,
+shape with phase 8's launches (and the 512-token suffix prefill, phase
+9's path, under "suffix_prefill"),
 and the MLA kernel's decode case with phase 11's launches and its verify
 case with phase 12's; and last {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
@@ -464,29 +468,18 @@ def cast_cases(torch, timer, dev, gen, cfg):
             "per_leaf": leaves, **tot, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def decode_case(torch, timer, dev, gen, dtype, *, B, ctx_max, page=16):
+def decode_setup(torch, dev, gen, dtype, *, B, ctx_max, page=16):
+    """Paged decode at full-width heads: B rows of ctx_max / 8 to ctx_max
+    tokens in fragmented pages, one query each at its last position."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
         gather_pages, paged_decode_attention, paged_decode_attention_plain)
     H, Hkv, D = 24, 8, 128
-    INVALID = 2 ** 30
     n_max = -(-ctx_max // page)
     lens = np.linspace(max(1, ctx_max // 8), ctx_max, B).astype(int)
-    n_pages = [-(-int(n) // page) for n in lens]
-    P = 2 + sum(n_pages)
     rng = np.random.RandomState(B)
-    ids = rng.permutation(np.arange(2, P))         # fragmented pool
-    table = np.zeros((B, n_max), np.int32)
-    pos = np.full((P, page), INVALID, np.int32)
-    nxt = 0
-    for b, (n, npg) in enumerate(zip(lens, n_pages)):
-        for j in range(npg):
-            pid = ids[nxt]
-            nxt += 1
-            table[b, j] = pid
-            p = np.arange(j * page, (j + 1) * page)
-            pos[pid] = np.where(p < n, p, INVALID)
+    P, pos, table, used_pages = _fragmented_pool(np, rng, lens, page, n_max)
     q_pos = (lens - 1).astype(np.int32)
     dt = getattr(torch, dtype)
     q = torch.randn(B, H, D, generator=gen, device=dev).to(dt)
@@ -495,10 +488,6 @@ def decode_case(torch, timer, dev, gen, dtype, *, B, ctx_max, page=16):
     pos_t = torch.from_numpy(pos).to(dev)
     table_t = torch.from_numpy(table).to(dev)
     qpos_t = torch.from_numpy(q_pos).to(dev)
-    args = (q, kp, vp, pos_t, table_t, qpos_t)
-    got = paged_decode_attention(*args)
-    want = paged_decode_attention_plain(*f32(args))
-    err, ok = max_err(torch, got, want, TOL[dtype])
 
     def library():
         k, v, kv_pos = gather_pages(kp, vp, pos_t, table_t)
@@ -508,19 +497,17 @@ def decode_case(torch, timer, dev, gen, dtype, *, B, ctx_max, page=16):
             attn_mask=mask, enable_gqa=True)
     visible = int(lens.sum())                    # keys these rows can see
     elt = q.element_size()
-    bytes_moved = (2 * q.numel() + 2 * visible * Hkv * D) * elt \
-        + 4 * (sum(n_pages) * page + table.size + B)
-    b_ms, b_by = bound(bytes_moved, 4.0 * D * H * visible, dtype)
     return {
-        "kernel": "paged_decode_attention", "dtype": dtype, "B": B,
-        "ctx_max": int(ctx_max), "n_max": n_max, "page": page, "H": H,
-        "Hkv": Hkv, "D": D, "visible_keys": visible,
-        "max_abs_err": err, "tol": TOL[dtype], "ok": ok,
-        "ms": timer.ms(lambda: paged_decode_attention(*args), 20),
-        "plain_ms": timer.ms(lambda: paged_decode_attention_plain(*args), 5),
-        "library_ms": timer.ms(library, 5),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+        "name": "paged_decode_attention", "fn": paged_decode_attention,
+        "plain": paged_decode_attention_plain,
+        "args": (q, kp, vp, pos_t, table_t, qpos_t), "kw": {},
+        "library": library,
+        "bytes": (2 * q.numel() + 2 * visible * Hkv * D) * elt
+        + 4 * (used_pages * page + table.size + B),
+        "flops": 4.0 * D * H * visible,
+        "info": {"kernel": "paged_decode_attention", "dtype": dtype, "B": B,
+                 "ctx_max": int(ctx_max), "n_max": n_max, "page": page,
+                 "H": H, "Hkv": Hkv, "D": D, "visible_keys": visible}}
 
 
 def _fragmented_pool(np, rng, lens, page, n_max):
@@ -559,8 +546,8 @@ def _slots_read(np, table, page, vis):
     return int(np.unique(phys[vis.any(axis=1)]).size)
 
 
-def verify_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, page=16,
-                window=None, suffix=False):
+def verify_setup(torch, dev, gen, dtype, *, B, S, ctx_max, page=16,
+                 window=None, suffix=False):
     """Paged verify at full-width heads: each row holds its context in
     fragmented pages and its last S tokens are the block (already
     written). Spec shapes mark row 0's last token as a masked slot (pos
@@ -585,10 +572,6 @@ def verify_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, page=16,
     pos_t = torch.from_numpy(pos).to(dev)
     table_t = torch.from_numpy(table).to(dev)
     qpos_t = torch.from_numpy(q_pos).to(dev)
-    args = (q, kp, vp, pos_t, table_t, qpos_t)
-    got = paged_verify_attention(*args, window=window)
-    want = paged_verify_attention_plain(*f32(args), window=window)
-    err, ok = max_err(torch, got, want, TOL[dtype])
     kv_pos = pos[table].reshape(B, -1)
     vis = _visible(np, q_pos, kv_pos, window)
     pairs = int(vis.sum())
@@ -603,26 +586,22 @@ def verify_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, page=16,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask[:, None], enable_gqa=True)
     elt = q.element_size()
-    bytes_moved = (2 * q.numel() + 2 * keys * Hkv * D) * elt \
-        + 4 * (used_pages * page + table.size + q_pos.size)
-    b_ms, b_by = bound(bytes_moved, 4.0 * D * H * pairs, dtype)
     return {
-        "kernel": "paged_verify_attention", "dtype": dtype, "B": B, "S": S,
-        "ctx_max": int(ctx_max), "n_max": n_max, "page": page, "H": H,
-        "Hkv": Hkv, "D": D, "window": window, "suffix_prefill": suffix,
-        "visible_keys": keys, "visible_pairs": pairs,
-        "max_abs_err": err, "tol": TOL[dtype], "ok": ok,
-        "ms": timer.ms(lambda: paged_verify_attention(*args, window=window),
-                       20),
-        "plain_ms": timer.ms(lambda: paged_verify_attention_plain(
-            *args, window=window), 5),
-        "library_ms": timer.ms(library, 5),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+        "name": "paged_verify_attention", "fn": paged_verify_attention,
+        "plain": paged_verify_attention_plain,
+        "args": (q, kp, vp, pos_t, table_t, qpos_t), "kw": {"window": window},
+        "library": library,
+        "bytes": (2 * q.numel() + 2 * keys * Hkv * D) * elt
+        + 4 * (used_pages * page + table.size + q_pos.size),
+        "flops": 4.0 * D * H * pairs,
+        "info": {"kernel": "paged_verify_attention", "dtype": dtype, "B": B,
+                 "S": S, "ctx_max": int(ctx_max), "n_max": n_max,
+                 "page": page, "H": H, "Hkv": Hkv, "D": D, "window": window,
+                 "suffix_prefill": suffix, "visible_keys": keys,
+                 "visible_pairs": pairs}}
 
 
-def contiguous_case(torch, timer, dev, gen, dtype, *, verify, B=4, S=5,
-                    L=1060):
+def contiguous_setup(torch, dev, gen, dtype, *, verify, B=4, S=5, L=1060):
     """decode_attention (one query per row) or verify_attention (S per
     row) over a contiguous (B, L, Hkv, D) cache, which launch the paged
     kernels through a one-page-per-row view; rows hold L/8 to L tokens."""
@@ -651,8 +630,6 @@ def contiguous_case(torch, timer, dev, gen, dtype, *, verify, B=4, S=5,
         name, fn, plain = "decode_attention", decode_attention, \
             decode_attention_plain
         args = (q[:, 0].contiguous(), k, v, kvp, qp[:, 0].contiguous())
-    got = fn(*args)
-    err, ok = max_err(torch, got, plain(*f32(args)), TOL[dtype])
     vis = _visible(np, q_pos, kv_pos, None)
     pairs, keys = int(vis.sum()), int(vis.any(axis=1).sum())
     mask = (kvp[:, None, :] <= qp[:, :, None])[:, None]
@@ -662,20 +639,56 @@ def contiguous_case(torch, timer, dev, gen, dtype, *, verify, B=4, S=5,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
     elt = q.element_size()
-    bytes_moved = (2 * B * S * H * D + 2 * keys * Hkv * D) * elt \
-        + 4 * (kv_pos.size + q_pos.size)
-    b_ms, b_by = bound(bytes_moved, 4.0 * D * H * pairs, dtype)
     return {
-        "kernel": name, "launches_kernel": (
+        "name": name, "fn": fn, "plain": plain, "args": args, "kw": {},
+        "library": library,
+        "bytes": (2 * B * S * H * D + 2 * keys * Hkv * D) * elt
+        + 4 * (kv_pos.size + q_pos.size),
+        "flops": 4.0 * D * H * pairs,
+        "info": {"kernel": name, "launches_kernel": (
             "paged_verify_attention" if verify else "paged_decode_attention"),
-        "dtype": dtype, "B": B, "S": S, "L": L, "H": H, "Hkv": Hkv, "D": D,
-        "visible_keys": keys, "visible_pairs": pairs,
-        "max_abs_err": err, "tol": TOL[dtype], "ok": ok,
-        "ms": timer.ms(lambda: fn(*args), 20),
-        "plain_ms": timer.ms(lambda: plain(*args), 5),
-        "library_ms": timer.ms(library, 5),
-        "bound_ms": b_ms, "bound_by": b_by,
+            "dtype": dtype, "B": B, "S": S, "L": L, "H": H, "Hkv": Hkv,
+            "D": D, "visible_keys": keys, "visible_pairs": pairs}}
+
+
+def paged_case(torch, timer, case):
+    """One decode / verify case of phase 2: the kernel against its plain
+    version run in f32, its time beside the plain version's, the library
+    call's and the bound, and how the wrapper launched it (regime,
+    context splits, keys per split, blocks of the main kernel: the plan
+    the wrapper recorded for this launch)."""
+    from repro_torch.kernels.decode_attention import LAST_PLAN
+    fn, plain, args, kw = case["fn"], case["plain"], case["args"], case["kw"]
+    info = case["info"]
+    dtype = info["dtype"]
+    got = fn(*args, **kw)
+    plan = dict(LAST_PLAN[info.get("launches_kernel", info["kernel"])])
+    err, ok = max_err(torch, got, plain(*f32(args), **kw), TOL[dtype])
+    b_ms, b_by = bound(case["bytes"], case["flops"], dtype)
+    ms = timer.ms(lambda: fn(*args, **kw), 20)
+    return {
+        **info, "regime": plan["regime"], "splits": plan["splits"],
+        "keys_per_split": plan["keys_per_split"], "blocks": plan["blocks"],
+        "max_abs_err": err, "tol": TOL[dtype], "ok": ok, "ms": ms,
+        "plain_ms": timer.ms(lambda: plain(*args, **kw), 5),
+        "library_ms": timer.ms(case["library"], 5),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
     }
+
+
+def decode_case(torch, timer, dev, gen, dtype, **kw):
+    return paged_case(torch, timer, decode_setup(torch, dev, gen, dtype,
+                                                 **kw))
+
+
+def verify_case(torch, timer, dev, gen, dtype, **kw):
+    return paged_case(torch, timer, verify_setup(torch, dev, gen, dtype,
+                                                 **kw))
+
+
+def contiguous_case(torch, timer, dev, gen, dtype, **kw):
+    return paged_case(torch, timer, contiguous_setup(torch, dev, gen, dtype,
+                                                     **kw))
 
 
 MLA_HEADS = (16, 512, 64, 128)     # H, r, rd, nd of full-width mla_dense
@@ -1593,11 +1606,12 @@ def main() -> None:
     cases += [train_spa, train_dec]
     # paged verify: the rollout engine's spec shape (f32), a suffix
     # prefill, a windowed case; the contiguous-cache wrappers
+    suffix = verify_case(torch, timer, dev, gen, "bfloat16", B=1, S=512,
+                         ctx_max=1024, suffix=True)
     cases += [
         verify_case(torch, timer, dev, gen, "float32", B=8, S=SPEC_K + 1,
                     ctx_max=TRAIN_PROMPT + TRAIN_RESP + SPEC_K),
-        verify_case(torch, timer, dev, gen, "bfloat16", B=1, S=512,
-                    ctx_max=1024, suffix=True),
+        suffix,
         verify_case(torch, timer, dev, gen, "bfloat16", B=4, S=SPEC_K + 1,
                     ctx_max=1060, window=256),
         contiguous_case(torch, timer, dev, gen, "bfloat16", verify=False),
@@ -1698,17 +1712,15 @@ def main() -> None:
          **({"bf16_prefill": {key: prefill[name][key] for key in timing}}
             if name in prefill else {})}
         for name, (src, rep, c) in meta.items()]
-    # the spec serving run's launches, timed at its shape (bf16, B 4, S 5)
+    # the spec serving run's launches, timed at its shape (bf16, B 4, S 5);
+    # the radix suffix prefill's shape (phase 9's path) beside it
     row.append({
         "name": "paged_verify_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_verify_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:262",
         "launches": spec["launches"]["paged_verify_attention"],
-        "max_abs_err": spec_verify["max_abs_err"], "ms": spec_verify["ms"],
-        "plain_ms": spec_verify["plain_ms"],
-        "bound_ms": spec_verify["bound_ms"],
-        "bound_by": spec_verify["bound_by"],
-        "library_ms": spec_verify["library_ms"]})
+        **{key: spec_verify[key] for key in timing},
+        "suffix_prefill": {key: suffix[key] for key in timing}})
     # the MLA kernel: its decode case with phase 11's launches, its verify
     # case with phase 12's (bf16, the serving shapes)
     for name, replaces, c, run in (

@@ -1,24 +1,41 @@
 #!/usr/bin/env python3
-"""A/B timing of the SPA attention kernels of two checkouts on one GPU.
+"""A/B timing of the attention kernels of two checkouts on one GPU.
 
     python3 spa_ab.py OLD_TREE [NEW_TREE] [--rounds N] [--out FILE.jsonl]
+                      [--kernels spa,paged]
 
 OLD_TREE and NEW_TREE (default: this checkout) are roots of checkouts of
 the repository, e.g. a parent commit unpacked with ``git archive`` into a
 directory of this checkout that ``.gitignore`` lists. Each tree's
-``repro_torch.kernels.spa_attention`` is imported from its own ``src``
-(its wrappers build its own ``kernels/csrc`` into its own ``_build``), so
-both versions run on one card, in one process, on the same inputs. For
-each of chip_smoke.py's phase-2 SPA cases (full-width llama3.2-3b heads:
-a 1024-token prompt, an SPA-packed row, a windowed prompt and the
-training row; bf16 and f32; forward and backward) every round times one
-call of each tree's wrapper and one of PyTorch's
-scaled_dot_product_attention (the yardstick, forward or backward),
-alternating the order, with chip_smoke's Timer (L2 flushed, the host's
-launch work left out). Prints one JSON line per (case, version) with the
-median, quartiles and mean over the rounds and the rounds the Timer could
-not keep free of host time, and the card's name and power limit first.
-Without CUDA it exits non-zero.
+``repro_torch.kernels.spa_attention`` and ``.decode_attention`` are
+imported from its own ``src`` (its wrappers build its own
+``kernels/csrc`` into its own ``_build``), so both versions run on one
+card, in one process, on the same inputs. Two groups of cases, both
+chip_smoke.py's phase-2 shapes at full-width llama3.2-3b heads:
+
+  * spa: a 1024-token prompt, an SPA-packed row, a windowed prompt and
+    the training row; bf16 and f32; forward and backward, against
+    PyTorch's scaled_dot_product_attention (forward or backward);
+  * paged: paged decode at B 4 (contexts to 1056) and B 16 (to 8192) in
+    bf16 and f32 and at the training shape (f32, B 8); paged verify at
+    the spec shape (B 4, S 5, bf16 and f32), the training spec shape
+    (f32, B 8), the 512-token suffix prefill (bf16) and the windowed
+    spec shape (bf16); the contiguous decode_attention and
+    verify_attention (bf16); against a page gather plus
+    scaled_dot_product_attention (SDPA alone for the contiguous ones).
+
+Every round times one call of each tree's wrapper and one of the library
+call, alternating the order, with chip_smoke's Timer (L2 flushed, the
+host's launch work left out). Prints one JSON line per (case, version)
+with the median, quartiles and mean over the rounds and the rounds the
+Timer could not keep free of host time, and the card's name and power
+limit first; the new tree's lines say whether its output (the SPA
+forward's, the paged wrapper's) is bitwise that of the old tree. For the
+paged cases it also prints each tree's host time per wrapper call
+(``"kind": "host"``, HOST_ROUNDS rounds): the wall time of HOST_CALLS
+calls queued behind a spin that keeps the card busy throughout (checked:
+the spin is still running when the last call is queued), so no call
+waits on the device. Without CUDA it exits non-zero.
 """
 from __future__ import annotations
 
@@ -28,6 +45,7 @@ import json
 import os
 import statistics
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = [("prompt1024", dict(prompt=1024)),
@@ -36,18 +54,98 @@ SHAPES = [("prompt1024", dict(prompt=1024)),
           ("train", dict(prompt=120, responses=8, resp_len=65))]
 
 
+# chip_smoke's phase-2 decode / verify cases: (label, setup, keywords)
+PAGED = [("decode_b4", "decode", dict(dtype="bfloat16", B=4, ctx_max=1056)),
+         ("decode_b16_8k", "decode",
+          dict(dtype="bfloat16", B=16, ctx_max=8192)),
+         ("decode_b4", "decode", dict(dtype="float32", B=4, ctx_max=1056)),
+         ("decode_b16_8k", "decode",
+          dict(dtype="float32", B=16, ctx_max=8192)),
+         ("decode_train", "decode", dict(dtype="float32", B=8, ctx_max=192)),
+         ("verify_spec", "verify",
+          dict(dtype="bfloat16", B=4, S=5, ctx_max=1060)),
+         ("verify_spec", "verify",
+          dict(dtype="float32", B=4, S=5, ctx_max=1060)),
+         ("verify_train", "verify", dict(dtype="float32", B=8, S=5,
+                                         ctx_max=196)),
+         ("suffix_prefill", "verify", dict(dtype="bfloat16", B=1, S=512,
+                                           ctx_max=1024, suffix=True)),
+         ("verify_window256", "verify", dict(dtype="bfloat16", B=4, S=5,
+                                             ctx_max=1060, window=256)),
+         ("decode_contiguous", "contiguous",
+          dict(dtype="bfloat16", verify=False)),
+         ("verify_contiguous", "contiguous",
+          dict(dtype="bfloat16", verify=True))]
+
+
 def load_tree(tree: str):
-    """``tree``'s repro_torch.kernels.spa_attention. The package is
-    dropped from sys.modules first, so each tree's functions keep their
-    own modules (and their own built kernels) once loaded."""
+    """``tree``'s repro_torch.kernels.spa_attention and .decode_attention.
+    The package is dropped from sys.modules first, so each tree's
+    functions keep their own modules (and their own built kernels) once
+    loaded."""
     for name in [m for m in sys.modules
                  if m == "repro_torch" or m.startswith("repro_torch.")]:
         del sys.modules[name]
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     try:
-        return importlib.import_module("repro_torch.kernels.spa_attention")
+        return {m: importlib.import_module(f"repro_torch.kernels.{m}")
+                for m in ("spa_attention", "decode_attention")}
     finally:
         sys.path.pop(0)
+
+
+def interleaved(timer, runs: dict, rounds: int):
+    """Each run timed once per round, in turns (reversed every other
+    round): the times and the rounds the Timer could not cover."""
+    times = {key: [] for key in runs}
+    uncovered = {key: 0 for key in runs}
+    keys = list(runs)
+    for r in range(rounds):
+        for key in (keys if r % 2 == 0 else keys[::-1]):
+            times[key].append(timer.ms(runs[key], 1))
+            uncovered[key] += not timer.covered
+    return times, uncovered
+
+
+HOST_CALLS, HOST_ROUNDS = 100, 20
+HOST_SPIN_CYCLES = 40_000_000           # ~20 ms at the H100's clock
+
+
+def host_times(torch, runs: dict, rounds: int):
+    """Host microseconds per call of each run, in turns: HOST_CALLS calls
+    queued behind a spin, timed on the host's clock. A round in which the
+    card finished the spin before the host had queued every call is
+    repeated with twice the spin."""
+    times = {key: [] for key in runs}
+    keys = list(runs)
+    spin = HOST_SPIN_CYCLES
+    for r in range(rounds):
+        for key in (keys if r % 2 == 0 else keys[::-1]):
+            fn = runs[key]
+            while True:
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(spin)
+                busy = torch.cuda.Event()
+                busy.record()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    fn()
+                t1 = time.perf_counter()
+                covered = not busy.query()
+                torch.cuda.synchronize()
+                if covered:
+                    break
+                spin *= 2
+            times[key].append((t1 - t0) / HOST_CALLS * 1e6)
+    return times
+
+
+def summary(ts) -> dict:
+    qs = statistics.quantiles(ts, n=4)
+    return {"median_ms": statistics.median(ts), "q1_ms": qs[0],
+            "q3_ms": qs[2], "mean_ms": statistics.fmean(ts),
+            "rounds": len(ts)}
 
 
 def main() -> None:
@@ -56,7 +154,10 @@ def main() -> None:
     ap.add_argument("new", nargs="?", default=ROOT)
     ap.add_argument("--rounds", type=int, default=60)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--kernels", default="spa,paged",
+                    help="comma-separated groups: spa, paged")
     args = ap.parse_args()
+    groups = set(args.kernels.split(","))
 
     import torch
     import torch.nn.functional as F
@@ -85,7 +186,7 @@ def main() -> None:
                    "--format=csv,noheader --id=0").read().strip()
     emit({"nvidia_smi": smi, "trees": {k: os.path.abspath(t)
                                        for k, t in trees.items()}})
-    for dtype in ("bfloat16", "float32"):
+    for dtype in ("bfloat16", "float32") if "spa" in groups else ():
         for case, kw in SHAPES:
             kw = dict(kw)
             window = kw.pop("window", None)
@@ -95,7 +196,8 @@ def main() -> None:
             q, k, v, pos, _, seg, _ = inputs
             dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
             runs = {}
-            for name, m in mods.items():
+            for name, tree in mods.items():
+                m = tree["spa_attention"]
                 _, o32, lse = m._forward_kernel(*inputs, D ** -0.5, window,
                                                 stats=True)
                 runs[("fwd", name)] = lambda m=m: m.spa_attention(
@@ -103,7 +205,8 @@ def main() -> None:
                 runs[("bwd", name)] = lambda m=m, o32=o32, lse=lse: \
                     m.spa_attention_bwd(*inputs, o32, lse, dout,
                                         window=window)
-            mask = mods["new"].allow_mask(pos, pos, seg, seg, window)[:, None]
+            mask = mods["new"]["spa_attention"].allow_mask(
+                pos, pos, seg, seg, window)[:, None]
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib = [t.detach().transpose(1, 2).requires_grad_()
                    for t in (q, k, v)]
@@ -115,20 +218,43 @@ def main() -> None:
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
             runs[("bwd", "sdpa")] = lambda: torch.autograd.grad(
                 out_lib, lib, dout_t, retain_graph=True)
-            times = {key: [] for key in runs}
-            uncovered = {key: 0 for key in runs}
-            keys = list(runs)
-            for r in range(args.rounds):
-                for key in (keys if r % 2 == 0 else keys[::-1]):
-                    times[key].append(timer.ms(runs[key], 1))
-                    uncovered[key] += not timer.covered
+            same = torch.equal(runs[("fwd", "old")](),
+                               runs[("fwd", "new")]())
+            times, uncovered = interleaved(timer, runs, args.rounds)
             for (kind, name), ts in times.items():
-                qs = statistics.quantiles(ts, n=4)
                 emit({"dtype": dtype, "case": case, "kind": kind,
-                      "version": name, "median_ms": statistics.median(ts),
-                      "q1_ms": qs[0], "q3_ms": qs[2],
-                      "mean_ms": statistics.fmean(ts), "rounds": len(ts),
-                      "uncovered_rounds": uncovered[(kind, name)]})
+                      "version": name, **summary(ts),
+                      "uncovered_rounds": uncovered[(kind, name)],
+                      **({"forward_equal_to_old": same}
+                         if (kind, name) == ("fwd", "new") else {})})
+    for case, setup, kw in PAGED if "paged" in groups else ():
+        kw = dict(kw)
+        dtype = kw.pop("dtype")
+        c = getattr(cs, f"{setup}_setup")(torch, dev, gen, dtype, **kw)
+        a, k = c["args"], c["kw"]
+        runs = {name: (lambda f=getattr(tree["decode_attention"],
+                                        c["fn"].__name__): f(*a, **k))
+                for name, tree in mods.items()}
+        runs["library"] = c["library"]
+        got = {name: runs[name]().float() for name in mods}
+        want = c["plain"](*cs.f32(a), **k)
+        times, uncovered = interleaved(timer, runs, args.rounds)
+        for name, ts in times.items():
+            emit({"dtype": dtype, "case": case, "kind": c["name"],
+                  "version": name, **summary(ts),
+                  "uncovered_rounds": uncovered[name],
+                  **({"max_abs_err": float((got[name] - want).abs().max())}
+                     if name in got else {}),
+                  **({"equal_to_old": torch.equal(got["old"], got["new"])}
+                     if name == "new" else {})})
+        host = host_times(torch, {name: runs[name] for name in mods},
+                          HOST_ROUNDS)
+        for name, us in host.items():
+            qs = statistics.quantiles(us, n=4)
+            emit({"dtype": dtype, "case": case, "kind": "host",
+                  "wrapper": c["fn"].__name__, "version": name,
+                  "median_us": statistics.median(us), "q1_us": qs[0],
+                  "q3_us": qs[2], "rounds": len(us), "calls": HOST_CALLS})
 
 
 if __name__ == "__main__":

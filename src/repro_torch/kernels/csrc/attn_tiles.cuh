@@ -501,11 +501,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
   else wgmma_rs_m64n64k16(d, a, db);
 }
 
-// S (64 x 64) = A (64 x D) * B^T, A and B K-major swizzled tiles of 64 rows.
+// S (64 x 64) = A (64 x D) * B^T, A and B K-major swizzled tiles of 64 rows
+// (A: the first 64 rows of a tile of a_rows).
 template <int D>
-__device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t a, uint32_t b) {
+__device__ __forceinline__ void wgmma_scores(float (&s)[32], uint32_t a, uint32_t b, int a_rows = 64) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_m64n64k16(s, desc_k(a, 64, kk), desc_k(b, 64, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_m64n64k16(s, desc_k(a, a_rows, kk), desc_k(b, 64, kk), kk > 0);
 }
 
 // Fragment layout of a 64 x N f32 accumulator (N / 2 registers a thread):
@@ -536,6 +537,85 @@ __device__ __forceinline__ void split_hi_lo(const float (&p)[32], uint32_t (&hi)
       hi[kk][e] = *reinterpret_cast<const uint32_t*>(&h);
       lo[kk][e] = pack_bf16(a - __low2float(h), b - __high2float(h));
     }
+}
+
+// One 64 x 64 score tile of a warpgroup through the online softmax, in
+// log2 units: raw scores s in, exp2 probabilities out (masked pairs exactly
+// 0); the maxima and sums of the thread's two fragment rows (m0, l0 and m1,
+// l1 of rows frag_row(0) and frag_row(0) + 8) updated, and the accumulator
+// o rescaled where some row's max moved. ok(c, hi) says whether the row
+// (hi: the second) sees column c; a full tile (every pair visible) skips it.
+template <int D, typename Visible>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&o)[D / 2], bool full,
+                                             Visible ok, float sl2, float& m0, float& m1,
+                                             float& l0, float& l1) {
+  uint32_t allow = 0xffffffffu;
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+  if (full) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if ((i >> 1) & 1) mx1 = fmaxf(mx1, s[i]);
+      else mx0 = fmaxf(mx0, s[i]);
+    }
+  } else {
+    allow = 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const bool hi_row = (i >> 1) & 1;
+      const bool v = ok(frag_col(i), hi_row);
+      allow |= (uint32_t)v << i;
+      if (v && hi_row) mx1 = fmaxf(mx1, s[i]);
+      if (v && !hi_row) mx0 = fmaxf(mx0, s[i]);
+    }
+  }
+  // a row's 64 scores sit in the 4 adjacent lanes of one quad
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+  }
+  // raw scores: the max commutes with the positive scale, which goes into
+  // one FFMA per element with the exponent; a row with no visible key in
+  // this tile keeps its max (NEG_INF stays NEG_INF: no scale applied)
+  const float mn0 = mx0 == NEG_INF ? m0 : fmaxf(m0, mx0 * sl2);
+  const float mn1 = mx1 == NEG_INF ? m1 : fmaxf(m1, mx1 * sl2);
+  const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const bool hi_row = (i >> 1) & 1;
+    const float p = (allow >> i) & 1u ? ex2(fmaf(s[i], sl2, -(hi_row ? mn1 : mn0))) : 0.f;
+    s[i] = p;
+    if (hi_row) sum1 += p;
+    else sum0 += p;
+  }
+  l0 = l0 * c0 + sum0;             // this thread's part of the row sums
+  l1 = l1 * c1 + sum1;
+  m0 = mn0;
+  m1 = mn1;
+  if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= ((i >> 1) & 1) ? c1 : c0;
+  }
+}
+
+// O (64 x D) += P V on the tensor cores, P (a 64 x 64 fragment of
+// probabilities) fed as a bf16 hi + lo pair, V a swizzled tile of 64 key
+// rows read MN-major; returns once the products are done.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const float (&p)[32], uint32_t vt) {
+  uint32_t hi[4][4], lo[4][4];
+  split_hi_lo(p, hi, lo);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, hi[kk], desc_mn(vt, 64, kk));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, lo[kk], desc_mn(vt, 64, kk));
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(o);
+  fence_regs(hi);
+  fence_regs(lo);
 }
 
 // ---------------------------------------------------------------------------
@@ -599,6 +679,47 @@ __device__ __forceinline__ void f32_nn(const float* P, const float* V, float (&a
         }
       }
     }
+  }
+}
+
+// One 64 x 32 score tile (f32_nt's layout) through the online softmax, in
+// natural units: each row's max and sum (m, l) updated, its accumulator o
+// rescaled, and the probabilities written to ps (row stride F_PLD; masked
+// pairs exactly 0). ok(i, c) says whether the thread's row i sees column c;
+// a full tile skips it. The caller syncs the warp before reading ps. (Read
+// `full` before the score product: read after it, ptxas gave the SPA
+// forward at D 128 168 registers instead of 254 and it ran 8 % slower on
+// the H100.)
+template <int D, typename Visible>
+__device__ __forceinline__ void softmax_tile_f32(float (&s)[F_NI][4], float (&o)[F_NI][D / 8],
+                                                 float* ps, bool full, Visible ok, float scale,
+                                                 float (&m)[F_NI], float (&l)[F_NI]) {
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
+#pragma unroll
+  for (int i = 0; i < F_NI; ++i) {
+    bool v[4];
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = full || ok(i, tx + 8 * j);
+      s[i][j] = v[j] ? s[i][j] * scale : NEG_INF;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    // a row's 32 scores sit in 8 adjacent lanes
+#pragma unroll
+    for (int x = 1; x <= 4; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+    const float mn = fmaxf(m[i], mx), corr = expf(m[i] - mn);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = v[j] ? expf(s[i][j] - mn) : 0.f;
+      ps[(ty + F_RS * i) * F_PLD + tx + 8 * j] = p;
+      sum += p;
+    }
+    l[i] = l[i] * corr + sum;
+    m[i] = mn;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) o[i][c] *= corr;
   }
 }
 

@@ -176,71 +176,11 @@ __global__ void __launch_bounds__(NT) spa_fwd_bf16(const __grid_constant__ Args 
 
     const int* kp = kp_s + st * BK;
     const int* kg = kg_s + st * BK;
-    // raw scores: the max commutes with the positive scale, which goes
-    // into one FFMA per element with the exponent
-    uint32_t allow = 0xffffffffu;
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-    if (map[t] == FULL) {            // every pair visible: no mask
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        if ((i >> 1) & 1) mx1 = fmaxf(mx1, s[i]);
-        else mx0 = fmaxf(mx0, s[i]);
-      }
-    } else {
-      allow = 0u;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int c = frag_col(i);
-        const bool hi_row = (i >> 1) & 1;
-        const bool ok = hi_row ? v1 && visible(qp1, qg1, kp[c], kg[c], a.window)
-                               : v0 && visible(qp0, qg0, kp[c], kg[c], a.window);
-        allow |= (uint32_t)ok << i;
-        if (ok && hi_row) mx1 = fmaxf(mx1, s[i]);
-        if (ok && !hi_row) mx0 = fmaxf(mx0, s[i]);
-      }
-    }
-    // a row's 64 scores sit in the 4 adjacent lanes of one quad
-#pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
-    }
-    // a row with no visible key in this tile keeps its max (NEG_INF stays
-    // NEG_INF: the scale is not applied to it)
-    const float mn0 = mx0 == NEG_INF ? m0 : fmaxf(m0, mx0 * sl2);
-    const float mn1 = mx1 == NEG_INF ? m1 : fmaxf(m1, mx1 * sl2);
-    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const bool hi_row = (i >> 1) & 1;
-      const float p = (allow >> i) & 1u ? ex2(fmaf(s[i], sl2, -(hi_row ? mn1 : mn0))) : 0.f;
-      s[i] = p;
-      if (hi_row) sum1 += p;
-      else sum0 += p;
-    }
-    l0 = l0 * c0 + sum0;             // this thread's part of the row sums
-    l1 = l1 * c1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-    if (__any_sync(0xffffffffu, c0 != 1.f || c1 != 1.f)) {  // some row's max moved
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= ((i >> 1) & 1) ? c1 : c0;
-    }
-
-    uint32_t hi[4][4], lo[4][4];
-    split_hi_lo(s, hi, lo);
-    const uint32_t vt = sb + L::V + st * L::TILE;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, hi[kk], desc_mn(vt, BK, kk));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, lo[kk], desc_mn(vt, BK, kk));
-    wg_commit();
-    wg_wait<0>();
-    fence_regs(o);
-    fence_regs(hi);
-    fence_regs(lo);
+    softmax_tile<D>(s, o, map[t] == FULL, [&](int c, bool hi) {
+      return hi ? v1 && visible(qp1, qg1, kp[c], kg[c], a.window)
+                : v0 && visible(qp0, qg0, kp[c], kg[c], a.window);
+    }, sl2, m0, m1, l0, l1);
+    wgmma_pv<D>(o, s, sb + L::V + st * L::TILE);
     __syncthreads();                 // stage st is free for the next prefetch
     t = tn;
     st ^= 1;
@@ -336,40 +276,16 @@ __global__ void __launch_bounds__(F_NT) spa_fwd_f32(const __grid_constant__ Args
     const float* vs = reinterpret_cast<const float*>(sm + L::V + st * L::KB);
     const int* kp = kp_s + st * BK;
     const int* kg = kg_s + st * BK;
-    const bool full = map[t] == FULL;
+    const bool full = map[t] == FULL;   // read before the products
     float s[F_NI][4];
 #pragma unroll
     for (int i = 0; i < F_NI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     f32_nt<D>(qs, ks, s);
-#pragma unroll
-    for (int i = 0; i < F_NI; ++i) {
-      bool ok[4];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 8 * j;
-        ok[j] = full || (vr[i] && visible(qp[i], qg[i], kp[c], kg[c], a.window));
-        s[i][j] = ok[j] ? s[i][j] * a.scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // a row's 32 scores sit in 8 adjacent lanes
-#pragma unroll
-      for (int x = 1; x <= 4; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
-      const float mn = fmaxf(m[i], mx), corr = expf(m[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - mn) : 0.f;
-        ps[(ty + F_RS * i) * F_PLD + tx + 8 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * corr + sum;
-      m[i] = mn;
-#pragma unroll
-      for (int c = 0; c < D / 8; ++c) o[i][c] *= corr;
-    }
+    softmax_tile_f32<D>(s, o, ps, full, [&](int i, int c) {
+      return vr[i] && visible(qp[i], qg[i], kp[c], kg[c], a.window);
+    }, a.scale, m, l);
     __syncwarp();                    // a row's P was written by its own warp
     f32_nn<D>(ps, vs, o);
     __syncthreads();

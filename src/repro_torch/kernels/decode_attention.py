@@ -2,12 +2,20 @@
 (decode) or S queries per row, each masked by its own position (the
 spec-decode verify block and the radix cache's suffix prefill).
 
-Three CUDA kernels serve six wrappers:
+Three CUDA sources serve six wrappers:
 
   * ``paged_decode_attention`` launches ``csrc/paged_decode_attention.cu``
-    (one query per row over the page pool);
+    (one query per row over the page pool): the Split-L kernel of
+    ``csrc/splitl.cuh``, the context split over blocks whose f32 partials
+    a second kernel merges in split order, for any number of query heads
+    per KV head;
   * ``paged_verify_attention`` launches ``csrc/paged_verify_attention.cu``
-    (S queries per row over the page pool);
+    (S queries per row over the page pool) in one of two regimes, chosen
+    here by R = S * G query rows per (row, KV head): R <= 64 (the spec
+    verify block) the same Split-L kernel, larger R (a suffix prefill)
+    query tiles (bf16: 128 rows, two warpgroups on the tensor cores; f32:
+    64 rows on the CUDA cores), split over the context (and merged by the
+    same ordered combine) only while the grid would leave most SMs idle;
   * ``decode_attention`` and ``verify_attention`` take a contiguous
     (B, L, Hkv, D) cache and launch the same two kernels through a
     zero-copy view of it as a pool: one page of length L per row, the
@@ -31,6 +39,7 @@ visible key returns 0 in both versions (JAX averages the masked values).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -40,14 +49,37 @@ from repro_torch.kernels.spa_attention import chunked_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_GMAX = 8     # query heads per KV head the decode kernel handles in a block
-# q, k_pages, v_pages, pos_pages, page_table, q_pos, out; B, H, Hkv, D, page,
-# n_max, dtype, window; scale; stream
-_DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+# q, k_pages, v_pages, pos_pages, page_table, q_pos, out, part_acc, part_ml;
+# B, H, Hkv, D, page, n_max, dtype, window, splits, keys per split; scale;
+# stream
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p]
-# the same with S after B
-_VERIFY_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+# the same with S after B and tiles (the regime) after keys per split
+_VERIFY_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [
     ctypes.c_float, ctypes.c_void_p]
+# The launch plan. Split-L (csrc/splitl.cuh): blocks walk 32-key steps,
+# and the context is cut into enough splits that at least _WAVES blocks
+# per SM exist and no split holds more than _SPLIT_KEYS keys (a long
+# context is read by more blocks at once). Verify blocks of more than
+# _SPLITL_MAX_ROWS query rows per (row, KV head) take the query-tile
+# regime: 128 rows a block in bf16 (two warpgroups), 64 in f32, over
+# 64-key tiles; its context is split only while fewer than _TILE_WAVES
+# blocks per SM exist (each block already walks its rows' whole causal
+# span). A split holds at most 4096 keys (its page-table entries and key
+# bits sit in shared memory).
+_KSTEP = 32
+_SPLIT_MAX_KEYS = 4096
+_WAVES = 2
+_SPLIT_KEYS = 1024
+_SPLITL_MAX_ROWS = 64
+_TILE_ROWS = {True: 128, False: 64}      # by bf16
+_TILE_KEYS = 64
+_TILE_WAVES = 0.5
+_sms = {}
+_tables = {}
+_plans = {}
+# wrapper name -> the plan (``attention_plan``) of its last kernel launch
+LAST_PLAN = {}
 # (r, rd) latent widths the MLA kernel is built for: full-width and reduced
 # deepseek-v2-lite
 _MLA_SHAPES = ((512, 64), (64, 16))
@@ -141,8 +173,93 @@ def paged_mla_verify_attention_plain(q, ckv_pages, kr_pages, pos_pages,
                                   window=window)
 
 
+def attention_plan(B: int, S: int, H: int, Hkv: int, L: int, sms: int, *,
+                   verify: bool, bf16: bool = False) -> dict:
+    """How the paged decode (``verify=False``, S 1) and verify wrappers
+    launch for a batch of B rows of S tokens over L = n_max * page logical
+    keys on a card of ``sms`` SMs: the regime, the number of context
+    splits and the keys each holds, the groups of query rows, and the
+    blocks of the main kernel. Split-L blocks hold up to 16 query rows;
+    more rows per (row, KV head) form more groups. ``bf16`` picks the
+    query-tile kernel's rows per block."""
+    R = S * (H // Hkv)
+    if verify and R > _SPLITL_MAX_ROWS:
+        tiles = -(-R // _TILE_ROWS[bf16])
+        steps = -(-L // _TILE_KEYS)
+        want = max(1, min(steps, math.ceil(_TILE_WAVES * sms
+                                           / (tiles * Hkv * B))))
+        per = min(-(-steps // want), _SPLIT_MAX_KEYS // _TILE_KEYS)
+        splits = -(-steps // per)
+        return {"regime": "tiles", "splits": splits,
+                "keys_per_split": per * _TILE_KEYS, "row_groups": tiles,
+                "blocks": splits * tiles * Hkv * B}
+    rows = 4 if R <= 4 else 8 if R <= 8 else 16
+    groups = -(-R // rows)
+    steps = -(-L // _KSTEP)
+    want = max(1, min(steps, max(-(-_WAVES * sms // (B * Hkv * groups)),
+                                 -(-L // _SPLIT_KEYS))))
+    per = min(max(1, steps // want), _SPLIT_MAX_KEYS // _KSTEP)
+    splits = -(-steps // per)
+    return {"regime": "splitl", "splits": splits,
+            "keys_per_split": per * _KSTEP, "row_groups": groups,
+            "blocks": splits * Hkv * B * groups}
+
+
+def _sm_count(device) -> int:
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def _plan(B, S, H, Hkv, L, device, verify, bf16) -> dict:
+    """``attention_plan`` on this device's card, made once per shape."""
+    key = (B, S, H, Hkv, L, device, verify, bf16)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = attention_plan(B, S, H, Hkv, L,
+                                            _sm_count(device), verify=verify,
+                                            bf16=bf16)
+    return plan
+
+
+def _launch_paged(name, symbol, argtypes, q, k_pages, v_pages, pos_pages,
+                  page_table, q_pos, scale, window, S, verify):
+    """Launch a paged kernel on q (B, [S,] H, D) by the plan: its splits
+    and keys per split, f32 scratch for the partials above one split (one
+    allocation: the accumulators, then (m, l) per row), and (verify) its
+    regime."""
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    page, Hkv = k_pages.shape[1], k_pages.shape[2]
+    n_max = page_table.shape[1]
+    plan = _plan(B, S, H, Hkv, n_max * page, q.device, verify,
+                 q.dtype == torch.bfloat16)
+    LAST_PLAN[name] = plan
+    splits = plan["splits"]
+    out = torch.empty_like(q)
+    scratch = [ctypes.c_void_p(None)] * 2
+    if splits > 1:
+        rows = splits * B * S * H
+        part = torch.empty(rows * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        base = part.data_ptr()
+        scratch = [ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * rows * D)]
+    launch = build.entry(name, symbol, argtypes)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dims = (B, S, H, Hkv, D) if verify else (B, H, Hkv, D)
+    regime = (int(plan["regime"] == "tiles"),) if verify else ()
+    launch(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
+           build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
+           build.ptr(out), *scratch, *dims, page, n_max, _DTYPES[q.dtype],
+           window or 0, splits, plan["keys_per_split"], *regime,
+           D ** -0.5 if scale is None else scale, ctypes.c_void_p(stream))
+    count_launch(name)
+    return out
+
+
 def _check_cuda(name, q, k_pages, v_pages, pos_pages, page_table, q_pos,
-                window, gmax=None):
+                window):
     """The kernels' input contract; q is (B, [S,] H, D), q_pos (B, [S])."""
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     if k_pages.shape != v_pages.shape or k_pages.dim() != 4:
@@ -152,11 +269,9 @@ def _check_cuda(name, q, k_pages, v_pages, pos_pages, page_table, q_pos,
     if Dk != D or D not in _HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head_dim in {_HEAD_DIMS} with "
                          f"Dv == Dk, got q {D}, pages {Dk}")
-    if H % Hkv or (gmax is not None and H // Hkv > gmax):
-        limit = "" if gmax is None else f" and at most {gmax} query heads " \
-            "per KV head"
-        raise ValueError(f"{name} kernel takes H % Hkv == 0{limit}, got "
-                         f"H={H}, Hkv={Hkv}")
+    if H % Hkv:
+        raise ValueError(f"{name} kernel takes H % Hkv == 0, got H={H}, "
+                         f"Hkv={Hkv}")
     if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
         raise TypeError(f"{name} kernel takes float32 or bfloat16 of one "
@@ -207,20 +322,10 @@ def paged_decode_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos,
                                             page_table, q_pos, scale=scale,
                                             window=window)
     _check_cuda(name, q, k_pages, v_pages, pos_pages, page_table, q_pos,
-                window, gmax=_GMAX)
-    B, H, D = q.shape
-    page, Hkv = k_pages.shape[1], k_pages.shape[2]
-    scale = D ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
-    launch = build.entry(name, "paged_decode_attention_launch",
-                         _DECODE_ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    launch(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
-           build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
-           build.ptr(out), B, H, Hkv, D, page, page_table.shape[1],
-           _DTYPES[q.dtype], window or 0, scale, ctypes.c_void_p(stream))
-    count_launch(name)
-    return out
+                window)
+    return _launch_paged(name, "paged_decode_attention_launch",
+                         _DECODE_ARGTYPES, q, k_pages, v_pages, pos_pages,
+                         page_table, q_pos, scale, window, 1, verify=False)
 
 
 def paged_verify_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos,
@@ -239,26 +344,21 @@ def paged_verify_attention(q, k_pages, v_pages, pos_pages, page_table, q_pos,
                                             window=window)
     _check_cuda(name, q, k_pages, v_pages, pos_pages, page_table, q_pos,
                 window)
-    B, S, H, D = q.shape
-    page, Hkv = k_pages.shape[1], k_pages.shape[2]
-    scale = D ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
-    launch = build.entry(name, "paged_verify_attention_launch",
-                         _VERIFY_ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    launch(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
-           build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
-           build.ptr(out), B, S, H, Hkv, D, page, page_table.shape[1],
-           _DTYPES[q.dtype], window or 0, scale, ctypes.c_void_p(stream))
-    count_launch(name)
-    return out
+    return _launch_paged(name, "paged_verify_attention_launch",
+                         _VERIFY_ARGTYPES, q, k_pages, v_pages, pos_pages,
+                         page_table, q_pos, scale, window, q.shape[1],
+                         verify=True)
 
 
 def _as_pool(k, v, kv_pos):
     """A contiguous (B, L, Hkv, D) cache as a pool of B pages of length L,
-    without a copy: row b's table is [b]."""
-    table = torch.arange(k.shape[0], dtype=torch.int32,
-                         device=k.device)[:, None]
+    without a copy: row b's table is [b] (one table per batch size and
+    device, made once: no kernel launch per call)."""
+    key = (k.shape[0], k.device)
+    table = _tables.get(key)
+    if table is None:
+        table = _tables[key] = torch.arange(
+            k.shape[0], dtype=torch.int32, device=k.device)[:, None]
     return k, v, kv_pos, table
 
 

@@ -79,13 +79,38 @@ def test_spa_kernel_matches_plain(dev, dtype, Lp, Lr, K, H, Hkv, D, window):
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
 
 
+# 16 rows with contexts up to 8k and one of 5 tokens: most of the short
+# row's splits see no key
+_LONG = tuple(int(n) for n in np.linspace(1024, 8192, 15)) + (5,)
+
+
+def _launch_twice(name, fn, *args, **kw):
+    """Two launches of a wrapper: each counts one launch of ``name`` and
+    nothing else, and both give the same bits."""
+    n0 = dict(LAUNCHES)
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == n0[name] + 2
+    assert sum(LAUNCHES.values()) == sum(n0.values()) + 2
+    assert torch.equal(got, again)
+    return got
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,H,Hkv,D,page,lens", [
-    (3, 4, 2, 64, 4, (3, 17, 9)),
-    (4, 24, 8, 128, 16, (100, 1056, 517, 64)),
+@pytest.mark.parametrize("B,H,Hkv,D,page,lens,window", [
+    (3, 4, 2, 64, 4, (3, 17, 9), None),
+    (4, 24, 8, 128, 16, (100, 1056, 517, 64), None),
+    (16, 24, 8, 128, 16, _LONG, None),                # long rows, dead splits
+    (4, 24, 8, 128, 16, (100, 1056, 517, 64), 128),   # first splits dead
+    (3, 8, 8, 128, 16, (40, 700, 301), None),         # G 1
+    (3, 32, 4, 128, 16, (40, 700, 301), None),        # G 8
+    (3, 32, 2, 64, 16, (40, 700, 301), None),         # G 16, D 64
+    (2, 40, 2, 64, 8, (90, 33), 16),                  # G 20: two row groups
+    (32, 24, 8, 128, 16, tuple(range(9, 289, 9)), None),  # 3 splits of 128 keys
 ])
 def test_paged_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, D, page,
-                                           lens):
+                                           lens, window):
     rng = np.random.RandomState(1)
     n_max = -(-max(lens) // page) + 1
     P = 2 + sum(-(-n // page) for n in lens)
@@ -110,16 +135,39 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, B, H, Hkv, D, page,
             t(rng.randn(P, page, Hkv, D).astype(np.float32), True),
             t(rng.randn(P, page, Hkv, D).astype(np.float32), True),
             t(pos), t(table), t(q_pos))
-    got = paged_decode_attention(*args)
-    want = paged_decode_attention_plain(*_f32(*args))
-    torch.cuda.synchronize()
+    got = _launch_twice("paged_decode_attention", paged_decode_attention,
+                        *args, window=window)
+    want = paged_decode_attention_plain(*_f32(*args), window=window)
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
 
 
-def _verify_pool(rng, B, S, page, lens, n_extra=1):
+@pytest.mark.parametrize("verify", [False, True])
+def test_paged_kernels_refuse_a_plan_that_misses_keys(dev, monkeypatch,
+                                                      verify):
+    """The kernels run the wrapper's plan as given (they work out no split
+    of their own) and refuse one whose splits leave keys out."""
+    import repro_torch.kernels.decode_attention as da
+    plan = da._plan
+    monkeypatch.setattr(da, "_plan", lambda *a: {
+        **plan(*a), "splits": 1, "keys_per_split": 64})
+    rng = np.random.RandomState(2)
+    P, pos, table, q_pos = _verify_pool(rng, 2, 3, 16, (300, 77))
+    q = torch.randn(2, 3, 24, 128, device=dev)
+    kv = torch.randn(P, 16, 8, 128, device=dev)
+    args = [torch.from_numpy(a).to(dev) for a in (pos, table, q_pos)]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if verify:
+            paged_verify_attention(q, kv, kv, *args)
+        else:
+            paged_decode_attention(q[:, 0].contiguous(), kv, kv, *args[:2],
+                                   args[2][:, 0].contiguous())
+
+
+def _verify_pool(rng, B, S, page, lens, n_extra=1, masked=True):
     """Rows b hold ``lens[b]`` tokens in fragmented pages; the last S of
-    them are the verify block (their K/V already written). Row 0's last
-    token is a masked slot (pos 2^30), which sees every slot."""
+    them are the verify block (their K/V already written). With
+    ``masked``, row 0's last token is a masked slot (pos 2^30), which sees
+    every slot."""
     n_max = -(-max(lens) // page) + n_extra
     P = 2 + sum(-(-n // page) for n in lens)
     ids = rng.permutation(np.arange(2, P))
@@ -133,21 +181,28 @@ def _verify_pool(rng, B, S, page, lens, n_extra=1):
             pos[ids[nxt]] = np.where(p < n, p, 2 ** 30)
             nxt += 1
     q_pos = np.stack([np.arange(n - S, n) for n in lens]).astype(np.int32)
-    q_pos[0, -1] = 2 ** 30
+    if masked:
+        q_pos[0, -1] = 2 ** 30
     return P, pos, table, q_pos
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,Hkv,D,page,lens,window", [
-    (3, 4, 4, 2, 64, 4, (6, 17, 9), None),
-    (4, 5, 24, 8, 128, 16, (100, 1060, 517, 64), None),   # spec verify
-    (1, 300, 24, 8, 128, 16, (812,), None),               # suffix prefill
-    (2, 9, 6, 2, 128, 8, (40, 77), 16),                   # windowed
+@pytest.mark.parametrize("B,S,H,Hkv,D,page,lens,window,masked", [
+    (3, 4, 4, 2, 64, 4, (6, 17, 9), None, True),
+    (4, 5, 24, 8, 128, 16, (100, 1060, 517, 64), None, True),   # spec verify
+    (1, 300, 24, 8, 128, 16, (812,), None, True),               # suffix prefill
+    (2, 9, 6, 2, 128, 8, (40, 77), 16, True),                   # windowed
+    (1, 512, 24, 8, 128, 16, (1024,), None, False),   # phase 2's suffix prefill
+    (4, 5, 24, 8, 128, 16, (100, 1060, 517, 64), 256, True),   # first splits dead
+    (2, 5, 8, 8, 64, 16, (300, 77), None, True),                # G 1, D 64
+    (2, 5, 32, 4, 128, 16, (500, 120), None, True),   # G 8: R 40, 3 row groups
+    (2, 3, 32, 2, 128, 16, (200, 700), None, True),   # G 16: R 48
+    (1, 100, 8, 2, 64, 8, (333,), None, True),        # query tiles at D 64
 ])
 def test_paged_verify_kernel_matches_plain(dev, dtype, B, S, H, Hkv, D, page,
-                                           lens, window):
+                                           lens, window, masked):
     rng = np.random.RandomState(2)
-    P, pos, table, q_pos = _verify_pool(rng, B, S, page, lens)
+    P, pos, table, q_pos = _verify_pool(rng, B, S, page, lens, masked=masked)
     dt = getattr(torch, dtype)
 
     def t(a, float_=False):
@@ -157,39 +212,36 @@ def test_paged_verify_kernel_matches_plain(dev, dtype, B, S, H, Hkv, D, page,
             t(rng.randn(P, page, Hkv, D).astype(np.float32), True),
             t(rng.randn(P, page, Hkv, D).astype(np.float32), True),
             t(pos), t(table), t(q_pos))
-    n0 = LAUNCHES["paged_verify_attention"]
-    got = paged_verify_attention(*args, window=window)
-    assert LAUNCHES["paged_verify_attention"] == n0 + 1
+    got = _launch_twice("paged_verify_attention", paged_verify_attention,
+                        *args, window=window)
     want = paged_verify_attention_plain(*_f32(*args), window=window)
-    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_contiguous_wrappers_launch_the_kernels(dev, dtype):
+@pytest.mark.parametrize("L,lens", [(200, (200, 57, 130)),
+                                    (1060, (132, 441, 750, 1060))])
+def test_contiguous_wrappers_launch_the_kernels(dev, dtype, L, lens):
     """decode_attention / verify_attention over a contiguous cache launch
-    the paged kernels through a one-page-per-row view."""
+    the paged kernels through a one-page-per-row view (one table entry per
+    row: the Split-L kernel splits it by keys)."""
     rng = np.random.RandomState(3)
-    B, L, S, H, Hkv, D = 3, 200, 5, 24, 8, 128
+    B, S, H, Hkv, D = len(lens), 5, 24, 8, 128
     dt = getattr(torch, dtype)
     k, v = (torch.from_numpy(rng.randn(B, L, Hkv, D).astype(np.float32))
             .to(dev, dt) for _ in range(2))
-    lens = np.asarray([200, 57, 130])
+    lens = np.asarray(lens)
     kv_pos = np.where(np.arange(L)[None] < lens[:, None], np.arange(L)[None],
                       2 ** 30).astype(np.int32)
     q_pos = (lens[:, None] - S + np.arange(S)[None]).astype(np.int32)
     q = torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32)).to(dev, dt)
     kp, qp = torch.from_numpy(kv_pos).to(dev), torch.from_numpy(q_pos).to(dev)
-    n0 = dict(LAUNCHES)
-    got_v = verify_attention(q, k, v, kp, qp)
-    got_d = decode_attention(q[:, 0].contiguous(), k, v, kp,
-                             qp[:, 0].contiguous())
-    assert LAUNCHES["paged_verify_attention"] == \
-        n0["paged_verify_attention"] + 1
-    assert LAUNCHES["paged_decode_attention"] == \
-        n0["paged_decode_attention"] + 1
+    got_v = _launch_twice("paged_verify_attention", verify_attention, q, k, v,
+                          kp, qp)
+    got_d = _launch_twice("paged_decode_attention", decode_attention,
+                          q[:, 0].contiguous(), k, v, kp,
+                          qp[:, 0].contiguous())
     f = _f32(q, k, v)
-    torch.cuda.synchronize()
     torch.testing.assert_close(got_v.float(), verify_attention_plain(
         *f, kp, qp), **TOL[dtype])
     torch.testing.assert_close(got_d.float(), decode_attention_plain(

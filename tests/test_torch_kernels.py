@@ -277,13 +277,49 @@ def _within_grad_bar(got, want):
     return bool((err <= rtol * want.abs() + atol_rel * want.abs().max()).all())
 
 
-@pytest.mark.parametrize("layout", [(512, 0, 0), (256, 64, 4)],
-                         ids=["prompt512", "packed"])
+def _paged_suffix_bf16(seed=13, cached=512, S=512, page=16):
+    """The radix suffix prefill at full-width heads (H 24, Hkv 8, D 128):
+    ``cached`` + S tokens in fragmented pages of a pool (and one unused
+    table entry, the null page), the last S tokens the queries, bf16
+    values as f32. Returns the paged inputs and the gathered context."""
+    from repro_torch.kernels.decode_attention import gather_pages
+    rng = np.random.RandomState(seed)
+    n = cached + S
+    n_max = n // page + 1
+    P = 2 + n // page
+    table = np.zeros((1, n_max), np.int32)
+    table[0, :n // page] = rng.permutation(np.arange(2, P))
+    pos = np.full((P, page), 2 ** 30, np.int32)
+    pos[table[0, :n // page]] = np.arange(n).reshape(-1, page)
+    bf = [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+          .to(torch.bfloat16).float()
+          for shape in ((1, S, 24, 128), (P, page, 8, 128), (P, page, 8, 128))]
+    paged = (*bf, torch.from_numpy(pos), torch.from_numpy(table),
+             torch.arange(cached, n, dtype=torch.int32)[None])
+    k, v, kv_pos = gather_pages(*paged[1:5])
+    return paged, (k, v, kv_pos[:, None, :] <= paged[5][:, :, None])
+
+
+@pytest.mark.parametrize("layout", [(512, 0, 0), (256, 64, 4), "suffix512"],
+                         ids=["prompt512", "packed", "suffix512"])
 def test_bf16_split_probabilities_meet_the_bar(layout):
     """bf16 inputs at full-width heads (H 24, Hkv 8, D 128): P (forward)
     and P and dS (backward) fed to the tensor cores as a bf16 hi + lo pair
     meet the kernels' bars against the plain versions run in f32; rounded
-    once to bf16 they miss them, which is why the kernels split."""
+    once to bf16 they miss them, which is why the kernels split. The
+    paged verify kernel's query tiles take the same forward: "suffix512"
+    is its radix suffix prefill, 512 query tokens (x G 3 flattened rows)
+    over 1024 paged keys in 64-key tiles (no backward there)."""
+    if layout == "suffix512":
+        from repro_torch.kernels.decode_attention import \
+            paged_verify_attention_plain
+        paged, (k, v, allow) = _paged_suffix_bf16()
+        want = paged_verify_attention_plain(*paged)
+        fwd = {split: torch.allclose(
+            _emulated_forward(paged[0], k, v, allow, split).float(), want,
+            **BF16_TOL) for split in (True, False)}
+        assert fwd[True] and not fwd[False]
+        return
     Lp, Lr, K = layout
     q, k, v, pos, seg = spa_layout(11, 1, Lp, Lr, K, 24, 8, 128)
     rng = np.random.RandomState(12)
