@@ -94,7 +94,9 @@ Phases, each printing one JSON line (every phase fails the run on error):
      package); every page back on the freelist. Prints tok/s, TTFT and
      TPOT p50/p99, peak memory and the latent pool's bytes per token
      beside llama3.2-3b's K/V bytes per token; then profiles its decode
-     steps as phase 4 does (mla_profile);
+     steps as phase 4 does (mla_profile), with the MLA kernel's own device
+     time per step (its main kernel and the combine that merges its
+     splits; no other kernel of the phase launches the combine);
  12. mla_spec_serve: the same model and requests with spec decode
      (prompt lookup, k 4). Checks MLA verify launches = 27 x verify
      forwards, MLA decode launches 0, every page back. Prints the
@@ -118,9 +120,11 @@ kernel (both of its wrappers) against its plain version at full-width
 heads (H 16, r 512, rd 64, MLA's scale 192^-0.5, page 16), bf16 and f32:
 decode at B 4 with contexts 64 to 1088 (phase 11's shape) and at B 16
 with contexts up to 8k, verify at B 4, S 5, contexts up to 1060 (phase
-12's), and a windowed verify. Its library call is a page gather plus
-scaled_dot_product_attention with the boolean mask (Dv != Dk); its bytes
-count each unique physical (page, slot) pair the call sees once.
+12's), and a windowed verify; each case also prints the wrapper's plan
+(context splits, keys per split, blocks). Its library call is a page
+gather plus scaled_dot_product_attention with the boolean mask (Dv !=
+Dk); its bytes count each unique physical (page, slot) pair the call sees
+once.
 
 Then one line {"kernels": [...]} with seven entries: the four kernels of
 the training path at the training run's shapes and launch counts (phase
@@ -129,7 +133,9 @@ serving shape, under "bf16_prefill"), paged_verify_attention at the spec
 shape with phase 8's launches (and the 512-token suffix prefill, phase
 9's path, under "suffix_prefill"),
 and the MLA kernel's decode case with phase 11's launches and its verify
-case with phase 12's; and last {"ok": true, "device": {...}}.
+case with phase 12's (bf16, with the plan's splits and blocks; the long
+decode, f32 and windowed cases of phase 2 beside them under their names);
+and last {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
 """
@@ -692,10 +698,11 @@ def contiguous_case(torch, timer, dev, gen, dtype, **kw):
 
 
 MLA_HEADS = (16, 512, 64, 128)     # H, r, rd, nd of full-width mla_dense
+MLA_PROFILE_KERNELS = ("paged_mla_kernel", "combine_kernel")
 
 
-def mla_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, ctx_min=None,
-             page=16, window=None):
+def mla_setup(torch, dev, gen, dtype, *, B, S, ctx_max, ctx_min=None,
+              page=16, window=None):
     """The paged MLA kernel at full-width heads over a fragmented latent
     pool: S == 1 through paged_mla_decode_attention, S > 1 through
     paged_mla_verify_attention (row 0's last token then a masked slot at
@@ -735,10 +742,6 @@ def mla_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, ctx_min=None,
         fn, plain = paged_mla_verify_attention, \
             paged_mla_verify_attention_plain
         args = (q, ckv, kr, pos_t, table_t, qpos_t)
-    kw = dict(scale=scale, window=window)
-    got = fn(*args, **kw)
-    want = plain(*f32(args), **kw)
-    err, ok = max_err(torch, got, want, TOL[dtype])
     kv_pos = pos[table].reshape(B, -1)
     vis = _visible(np, q_pos, kv_pos, window)
     pairs = int(vis.sum())
@@ -753,20 +756,21 @@ def mla_case(torch, timer, dev, gen, dtype, *, B, S, ctx_max, ctx_min=None,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=m[:, None], scale=scale, enable_gqa=True)
     elt = q.element_size()
-    bytes_moved = (B * S * H * ((r + rd) + r) + keys * (r + rd)) * elt \
-        + 4 * (used_pages * page + table.size + q_pos.size)
-    b_ms, b_by = bound(bytes_moved, 2.0 * pairs * H * ((r + rd) + r), dtype)
     return {
-        "kernel": name, "dtype": dtype, "B": B, "S": S,
-        "ctx": [int(lens.min()), int(lens.max())], "n_max": n_max,
-        "page": page, "H": H, "r": r, "rd": rd, "scale": scale,
-        "window": window, "visible_keys": keys, "visible_pairs": pairs,
-        "max_abs_err": err, "tol": TOL[dtype], "ok": ok,
-        "ms": timer.ms(lambda: fn(*args, **kw), 20),
-        "plain_ms": timer.ms(lambda: plain(*args, **kw), 5),
-        "library_ms": timer.ms(library, 5),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+        "name": name, "fn": fn, "plain": plain, "args": args,
+        "kw": dict(scale=scale, window=window), "library": library,
+        "bytes": (B * S * H * ((r + rd) + r) + keys * (r + rd)) * elt
+        + 4 * (used_pages * page + table.size + q_pos.size),
+        "flops": 2.0 * pairs * H * ((r + rd) + r),
+        "info": {"kernel": name, "dtype": dtype, "B": B, "S": S,
+                 "ctx": [int(lens.min()), int(lens.max())], "n_max": n_max,
+                 "page": page, "H": H, "r": r, "rd": rd, "scale": scale,
+                 "window": window, "visible_keys": keys,
+                 "visible_pairs": pairs}}
+
+
+def mla_case(torch, timer, dev, gen, dtype, **kw):
+    return paged_case(torch, timer, mla_setup(torch, dev, gen, dtype, **kw))
 
 
 # ---------------------------------------------------------------------
@@ -837,13 +841,16 @@ def serve_full_width(torch, np, dev, seed: int):
     }
 
 
-def profile_decode(torch, np, eng, prompts, seed: int, steps: int = 8):
+def profile_decode(torch, np, eng, prompts, seed: int, steps: int = 8,
+                   kernels=()):
     """Device busy and idle time of decode steps with every slot busy
     (prefills happen before the windows open). Two adjacent windows of
     ``steps`` steps each: the first unprofiled, for the host wall time of
     a step; the second under torch.profiler, for the device-busy time of
     a step (the profiler slows the host, not the kernels). The idle share
-    is an estimate from the two windows."""
+    is an estimate from the two windows. ``kernels``: names whose device
+    time per step (summed over every kernel whose name holds one) is
+    reported apart."""
     from torch.profiler import ProfilerActivity, profile
 
     def wall_ms_per_step() -> float:
@@ -864,10 +871,10 @@ def profile_decode(torch, np, eng, prompts, seed: int, steps: int = 8):
         pass
     if not all(h.done() for h in handles):
         fail("profiled requests did not complete")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     return {
         "phase": "profile", "steps": steps, "slots_busy": eng.B,
         "wall_ms_per_step": wall_ms,
@@ -880,6 +887,12 @@ def profile_decode(torch, np, eng, prompts, seed: int, steps: int = 8):
         "top_kernels_ms_per_step": [
             [e.key[:80], e.self_device_time_total / 1e3 / steps, e.count]
             for e in top],
+        "kernel_ms_per_step": {
+            name: sum(e.self_device_time_total for e in events
+                      if name in e.key) / 1e3 / steps for name in kernels},
+        "kernel_launches_per_step": {
+            name: sum(e.count for e in events if name in e.key) / steps
+            for name in kernels},
     }
 
 
@@ -1675,8 +1688,13 @@ def main() -> None:
     mla_params, mla_eng, mla_prompts, mla_srv = mla_serve(
         torch, np, dev, args.seed, spec_k=0)
     emit(mla_srv)
-    emit({**profile_decode(torch, np, mla_eng, mla_prompts, args.seed),
-          "phase": "mla_profile"})
+    # the MLA kernel's device time per step: its main kernel and (above one
+    # split) the combine, which no other kernel of this phase launches
+    mla_prof = profile_decode(torch, np, mla_eng, mla_prompts, args.seed,
+                              kernels=MLA_PROFILE_KERNELS)
+    mla_prof["mla_kernel_ms_per_step"] = sum(
+        mla_prof["kernel_ms_per_step"].values())
+    emit({**mla_prof, "phase": "mla_profile"})
     del mla_eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1723,19 +1741,25 @@ def main() -> None:
         "suffix_prefill": {key: suffix[key] for key in timing}})
     # the MLA kernel: its decode case with phase 11's launches, its verify
     # case with phase 12's (bf16, the serving shapes)
-    for name, replaces, c, run in (
+    # (bf16, the serving shapes), with the plan's splits and blocks; the
+    # long decode, f32 and windowed cases of phase 2 beside them
+    plan_keys = ("splits", "blocks")
+    for name, replaces, c, run, more in (
             ("paged_mla_decode_attention", 277, mla["decode_serve_bfloat16"],
-             mla_srv),
+             mla_srv, {"decode_long": mla["decode_long_bfloat16"],
+                       "f32": mla["decode_serve_float32"],
+                       "decode_long_f32": mla["decode_long_float32"]}),
             ("paged_mla_verify_attention", 301, mla["verify_spec_bfloat16"],
-             mla_spec)):
+             mla_spec, {"f32": mla["verify_spec_float32"],
+                        "window": mla["verify_window_bfloat16"]})):
         row.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_mla_attention.cu",
             "replaces": f"src/repro/kernels/decode_attention.py:{replaces}",
             "launches": run["launches"][name],
-            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            **{key: c[key] for key in timing + plan_keys},
+            **{case: {key: m[key] for key in timing + plan_keys}
+               for case, m in more.items()}})
     emit({"kernels": row})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,17 @@
 """A/B timing of the attention kernels of two checkouts on one GPU.
 
     python3 spa_ab.py OLD_TREE [NEW_TREE] [--rounds N] [--out FILE.jsonl]
-                      [--kernels spa,paged]
+                      [--kernels spa,paged,mla,cast]
 
 OLD_TREE and NEW_TREE (default: this checkout) are roots of checkouts of
 the repository, e.g. a parent commit unpacked with ``git archive`` into a
 directory of this checkout that ``.gitignore`` lists. Each tree's
-``repro_torch.kernels.spa_attention`` and ``.decode_attention`` are
-imported from its own ``src`` (its wrappers build its own
-``kernels/csrc`` into its own ``_build``), so both versions run on one
-card, in one process, on the same inputs. Two groups of cases, both
-chip_smoke.py's phase-2 shapes at full-width llama3.2-3b heads:
+``repro_torch.kernels.spa_attention``, ``.decode_attention`` and
+``.transfer_cast`` are imported from its own ``src`` (its wrappers build
+its own ``kernels/csrc`` into its own ``_build``), so both versions run on
+one card, in one process, on the same inputs. Four groups of cases,
+chip_smoke.py's phase-2 shapes (the first two at full-width llama3.2-3b
+heads):
 
   * spa: a 1024-token prompt, an SPA-packed row, a windowed prompt and
     the training row; bf16 and f32; forward and backward, against
@@ -22,7 +23,15 @@ chip_smoke.py's phase-2 shapes at full-width llama3.2-3b heads:
     (f32, B 8), the 512-token suffix prefill (bf16) and the windowed
     spec shape (bf16); the contiguous decode_attention and
     verify_attention (bf16); against a page gather plus
-    scaled_dot_product_attention (SDPA alone for the contiguous ones).
+    scaled_dot_product_attention (SDPA alone for the contiguous ones);
+  * mla: the paged MLA kernel at full-width mla_dense heads (H 16, r 512,
+    rd 64): decode at B 4 (contexts 64 to 1088) and B 16 (to 8192),
+    the spec verify block (B 4, S 5), bf16 and f32, and the windowed
+    verify block (bf16); against a latent page gather plus SDPA;
+  * cast: transfer_cast on every leaf of the training run's parameter
+    tree (12-layer llama3.2-3b, f32 -> bf16), against x.to(torch.bfloat16);
+    besides each leaf's lines, one line per version sums the medians over
+    the tree (one publish's casts).
 
 Every round times one call of each tree's wrapper and one of the library
 call, alternating the order, with chip_smoke's Timer (L2 flushed, the
@@ -30,8 +39,9 @@ host's launch work left out). Prints one JSON line per (case, version)
 with the median, quartiles and mean over the rounds and the rounds the
 Timer could not keep free of host time, and the card's name and power
 limit first; the new tree's lines say whether its output (the SPA
-forward's, the paged wrapper's) is bitwise that of the old tree. For the
-paged cases it also prints each tree's host time per wrapper call
+forward's, the paged wrapper's, the cast's) is bitwise that of the old
+tree (the cast's also whether it is bitwise x.to's). For the paged and
+MLA cases it also prints each tree's host time per wrapper call
 (``"kind": "host"``, HOST_ROUNDS rounds): the wall time of HOST_CALLS
 calls queued behind a spin that keeps the card busy throughout (checked:
 the spin is still running when the last call is queued), so no call
@@ -78,8 +88,20 @@ PAGED = [("decode_b4", "decode", dict(dtype="bfloat16", B=4, ctx_max=1056)),
           dict(dtype="bfloat16", verify=True))]
 
 
+# chip_smoke's phase-2 MLA cases: (label, setup, keywords)
+MLA = [(case, "mla", dict(dtype=dtype, **kw))
+       for dtype in ("bfloat16", "float32")
+       for case, kw in (("decode_serve", dict(B=4, S=1, ctx_min=64,
+                                               ctx_max=1088)),
+                        ("decode_long", dict(B=16, S=1, ctx_max=8192)),
+                        ("verify_spec", dict(B=4, S=5, ctx_max=1060)))] + [
+    ("verify_window256", "mla",
+     dict(dtype="bfloat16", B=4, S=5, ctx_max=1060, window=256))]
+
+
 def load_tree(tree: str):
-    """``tree``'s repro_torch.kernels.spa_attention and .decode_attention.
+    """``tree``'s repro_torch.kernels.spa_attention, .decode_attention and
+    .transfer_cast.
     The package is dropped from sys.modules first, so each tree's
     functions keep their own modules (and their own built kernels) once
     loaded."""
@@ -89,7 +111,8 @@ def load_tree(tree: str):
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     try:
         return {m: importlib.import_module(f"repro_torch.kernels.{m}")
-                for m in ("spa_attention", "decode_attention")}
+                for m in ("spa_attention", "decode_attention",
+                          "transfer_cast")}
     finally:
         sys.path.pop(0)
 
@@ -155,7 +178,7 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=60)
     ap.add_argument("--out", default=None)
     ap.add_argument("--kernels", default="spa,paged",
-                    help="comma-separated groups: spa, paged")
+                    help="comma-separated groups: spa, paged, mla, cast")
     args = ap.parse_args()
     groups = set(args.kernels.split(","))
 
@@ -227,7 +250,9 @@ def main() -> None:
                       "uncovered_rounds": uncovered[(kind, name)],
                       **({"forward_equal_to_old": same}
                          if (kind, name) == ("fwd", "new") else {})})
-    for case, setup, kw in PAGED if "paged" in groups else ():
+    cases = (PAGED if "paged" in groups else []) + \
+        (MLA if "mla" in groups else [])
+    for case, setup, kw in cases:
         kw = dict(kw)
         dtype = kw.pop("dtype")
         c = getattr(cs, f"{setup}_setup")(torch, dev, gen, dtype, **kw)
@@ -255,6 +280,44 @@ def main() -> None:
                   "wrapper": c["fn"].__name__, "version": name,
                   "median_us": statistics.median(us), "q1_us": qs[0],
                   "q3_us": qs[2], "rounds": len(us), "calls": HOST_CALLS})
+    if "cast" in groups:
+        cast_tree(torch, cs, mods, timer, gen, dev, args.rounds, emit)
+
+
+def cast_tree(torch, cs, mods, timer, gen, dev, rounds, emit):
+    """transfer_cast of each tree and x.to on every leaf of the training
+    tree, interleaved leaf by leaf; per leaf and summed over the tree."""
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.transfer.plan import flatten_with_keys
+    bf16 = torch.bfloat16
+    keys, shapes = flatten_with_keys(param_shapes(cs.train_config()))
+    total = {name: 0.0 for name in (*mods, "library")}
+    bitwise = {name: True for name in mods}
+    for key, shape in zip(keys, shapes):
+        x = torch.randn(tuple(shape), generator=gen, device=dev)
+        runs = {name: (lambda f=tree["transfer_cast"].transfer_cast:
+                       f(x, bf16)) for name, tree in mods.items()}
+        runs["library"] = lambda: x.to(bf16)
+        want = x.to(bf16)
+        same = {name: cs.cast_bitwise(torch, runs[name](), want)
+                for name in mods}
+        times, uncovered = interleaved(timer, runs, rounds)
+        for name, ts in times.items():
+            rec = summary(ts)
+            total[name] += rec["median_ms"]
+            if name in same:
+                bitwise[name] = bitwise[name] and same[name]
+            emit({"dtype": "float32->bfloat16", "case": "train_tree",
+                  "kind": "transfer_cast", "leaf": key, "shape": list(shape),
+                  "version": name, **rec,
+                  "uncovered_rounds": uncovered[name],
+                  **({"bitwise_to": same[name]} if name in same else {})})
+        del x, want
+    for name, ms in total.items():
+        emit({"dtype": "float32->bfloat16", "case": "train_tree",
+              "kind": "transfer_cast", "leaf": "sum of medians",
+              "version": name, "median_ms": ms,
+              **({"bitwise_to": bitwise[name]} if name in bitwise else {})})
 
 
 if __name__ == "__main__":

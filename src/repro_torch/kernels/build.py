@@ -123,3 +123,12 @@ def entry(name: str, symbol: str,
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t) -> ctypes.c_void_p:
+    """The current CUDA stream of ``t``'s device, as the raw handle the C
+    entry points take (``torch._C._cuda_getCurrentRawStream``, which
+    PyTorch's own compiler uses: no ``torch.cuda.Stream`` object is built
+    per launch)."""
+    import torch
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.get_device()))

@@ -25,6 +25,9 @@ Three CUDA sources serve six wrappers:
     ``csrc/paged_mla_attention.cu``: absorbed MLA attention over the
     paged LATENT pool, which is MQA (Hkv = 1, G = H) with K = [ckv | kr]
     (Dk = r + rd) and V = ckv (Dv = r); the caller passes MLA's scale.
+    It is Split-L too (``mla_plan``: blocks of 16 query rows, the context
+    split over blocks, the same ordered combine), with bf16 products on
+    the tensor cores.
 
 Each kernel walks the row's page table itself. CPU tensors take the plain
 versions (``*_plain``), which gather each row's pages into a contiguous
@@ -83,10 +86,23 @@ LAST_PLAN = {}
 # (r, rd) latent widths the MLA kernel is built for: full-width and reduced
 # deepseek-v2-lite
 _MLA_SHAPES = ((512, 64), (64, 16))
-# q, ckv_pages, kr_pages, pos_pages, page_table, q_pos, out; B, S, H, r, rd,
-# page, n_max, dtype, window; scale; stream
-_MLA_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+# q, ckv_pages, kr_pages, pos_pages, page_table, q_pos, out, part_acc,
+# part_ml; B, S, H, r, rd, page, n_max, dtype, window, splits, keys per
+# split; scale; stream
+_MLA_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
     ctypes.c_float, ctypes.c_void_p]
+# The MLA plan (``mla_plan``): blocks of 16 query rows walk 32-key tiles;
+# two blocks per SM in one wave where the context allows; 256 to 1024 keys
+# a split, down to 64 where 256-key splits leave fewer than two blocks per
+# SM.
+_MLA_ROWS = 16
+_MLA_TILE = 32
+_MLA_WAVES = 2
+_MLA_SMALL_KEYS = 64
+_MLA_MIN_KEYS = 256
+_MLA_MAX_KEYS = 1024
+_mla_plans = {}
+_NO_SCRATCH = (ctypes.c_void_p(None), ctypes.c_void_p(None))
 
 
 def gather_pages(k_pages, v_pages, pos_pages, page_table):
@@ -205,6 +221,49 @@ def attention_plan(B: int, S: int, H: int, Hkv: int, L: int, sms: int, *,
             "blocks": splits * Hkv * B * groups}
 
 
+def mla_plan(B: int, S: int, H: int, L: int, sms: int) -> dict:
+    """How the MLA wrappers launch for B rows of S tokens of H heads over
+    L = n_max * page logical keys on a card of ``sms`` SMs: the row groups
+    (16 query rows a block: a token's 16 heads at full width), the context
+    splits and the keys each holds (whole 32-key tiles), and the blocks of
+    the main kernel. It is the plain function of the shape that
+    ``attention_plan`` is for the GQA kernels, and takes no account of
+    which keys are live.
+
+    The splits are as many as give two blocks per SM in one wave, not one
+    block more (the bf16 kernel's shared memory lets two blocks share an
+    SM; a block left to a second wave would start its walk late), with 64
+    to 1024 keys each (a split's positions, slots and live bits sit in
+    shared memory). The
+    f32 partials weigh on that choice: one split of one row group writes
+    16 x (r + 2) floats and the combine reads them once, 65,792 bytes at
+    full width (r 512), against 294,912 bytes of bf16 latent rows in a
+    256-key split (22 %; f32 rows: 11 %; reduced width, r 64 / rd 16: 8,448
+    against 40,960 bytes, 21 %). A split holds fewer than 256 keys only
+    where 256-key splits would leave fewer than two blocks per SM: there
+    the call is too small to be bound by bytes, its time is the longest
+    block's walk, and the partials' bytes (89 % of the latent bytes at 64
+    keys) cost less than a longer walk. At chip_smoke's phase-2 shapes on
+    132 SMs:
+
+      * decode B 4 over 1104 keys: 18 splits of 64 keys, 72 blocks;
+      * decode B 16 over 8208 keys: 16 splits of 544 keys, 256 blocks;
+      * verify B 4, S 5 over 1088 keys: 5 row groups, 12 splits of 96
+        keys, 240 blocks."""
+    groups = -(-S * H // _MLA_ROWS)
+    steps = -(-L // _MLA_TILE)
+    want = max(1, _MLA_WAVES * sms // (B * groups))     # one wave, not one block more
+    least = _MLA_MIN_KEYS // _MLA_TILE
+    per = max(least, -(-steps // want))
+    if per == least and B * groups * -(-steps // least) < _MLA_WAVES * sms:
+        per = max(_MLA_SMALL_KEYS // _MLA_TILE, -(-steps // want))
+    per = min(per, _MLA_MAX_KEYS // _MLA_TILE, steps)
+    splits = -(-steps // per)
+    return {"regime": "splitl", "splits": splits,
+            "keys_per_split": per * _MLA_TILE, "row_groups": groups,
+            "blocks": splits * groups * B}
+
+
 def _sm_count(device) -> int:
     n = _sms.get(device.index)
     if n is None:
@@ -238,22 +297,21 @@ def _launch_paged(name, symbol, argtypes, q, k_pages, v_pages, pos_pages,
     LAST_PLAN[name] = plan
     splits = plan["splits"]
     out = torch.empty_like(q)
-    scratch = [ctypes.c_void_p(None)] * 2
+    scratch = _NO_SCRATCH
     if splits > 1:
         rows = splits * B * S * H
         part = torch.empty(rows * (D + 2), dtype=torch.float32,
                            device=q.device)
         base = part.data_ptr()
-        scratch = [ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * rows * D)]
+        scratch = (ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * rows * D))
     launch = build.entry(name, symbol, argtypes)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     dims = (B, S, H, Hkv, D) if verify else (B, H, Hkv, D)
     regime = (int(plan["regime"] == "tiles"),) if verify else ()
     launch(build.ptr(q), build.ptr(k_pages), build.ptr(v_pages),
            build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
            build.ptr(out), *scratch, *dims, page, n_max, _DTYPES[q.dtype],
            window or 0, splits, plan["keys_per_split"], *regime,
-           D ** -0.5 if scale is None else scale, ctypes.c_void_p(stream))
+           D ** -0.5 if scale is None else scale, build.stream(q))
     count_launch(name)
     return out
 
@@ -389,62 +447,85 @@ def verify_attention(q, k, v, kv_pos, q_pos, *, scale: Optional[float] = None,
 def _check_mla_cuda(name, q, ckv_pages, kr_pages, pos_pages, page_table,
                     q_pos, window):
     """The MLA kernel's input contract; q is (B, [S,] H, r + rd), q_pos
-    (B, [S])."""
-    if ckv_pages.dim() != 3 or kr_pages.dim() != 3 \
-            or ckv_pages.shape[:2] != kr_pages.shape[:2]:
+    (B, [S]). Written to cost little host time per call: sizes are read
+    once and compared one by one (slicing a shape is slow)."""
+    cs, rs = ckv_pages.shape, kr_pages.shape
+    if len(cs) != 3 or len(rs) != 3 or cs[0] != rs[0] or cs[1] != rs[1]:
         raise ValueError(f"{name}: latent pages must be (P, page, r) and "
-                         f"(P, page, rd), got {tuple(ckv_pages.shape)}/"
-                         f"{tuple(kr_pages.shape)}")
-    P, page, r = ckv_pages.shape
-    rd = kr_pages.shape[-1]
-    if (r, rd) not in _MLA_SHAPES or q.shape[-1] != r + rd:
+                         f"(P, page, rd), got {tuple(cs)}/{tuple(rs)}")
+    P, page, r = cs
+    rd = rs[2]
+    qs = q.shape
+    if (r, rd) not in _MLA_SHAPES or qs[-1] != r + rd:
         raise ValueError(f"{name} kernel is built for (r, rd) in "
                          f"{_MLA_SHAPES} with q of width r + rd, got "
-                         f"({r}, {rd}) and q {q.shape[-1]}")
-    if q.dtype not in _DTYPES or ckv_pages.dtype != q.dtype \
-            or kr_pages.dtype != q.dtype:
+                         f"({r}, {rd}) and q {qs[-1]}")
+    dt = q.dtype
+    if dt not in _DTYPES or ckv_pages.dtype != dt or kr_pages.dtype != dt:
         raise TypeError(f"{name} kernel takes float32 or bfloat16 of one "
-                        f"dtype, got {q.dtype}/{ckv_pages.dtype}/"
+                        f"dtype, got {dt}/{ckv_pages.dtype}/"
                         f"{kr_pages.dtype}")
-    if page_table.dim() != 2:
+    ts = page_table.shape
+    if len(ts) != 2:
         raise TypeError(f"{name}: page_table must be (B, n_max)")
-    B = q.shape[0]
+    i32 = torch.int32
     for arg, t, shape in (("pos_pages", pos_pages, (P, page)),
-                          ("page_table", page_table,
-                           (B, page_table.shape[-1])),
-                          ("q_pos", q_pos, tuple(q.shape[:-2]))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+                          ("page_table", page_table, (qs[0], ts[1])),
+                          ("q_pos", q_pos, tuple(qs)[:-2])):
+        if t.dtype != i32 or t.shape != shape:
             raise TypeError(f"{name}: {arg} must be int32 {shape}, got "
                             f"{t.dtype} {tuple(t.shape)}")
+    dev = q.get_device()
     for t in (q, ckv_pages, kr_pages, pos_pages, page_table, q_pos):
-        if t.device != q.device:
+        if t.get_device() != dev:
             raise ValueError(f"{name}: all inputs must be on one device")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous inputs")
-    for t in (ckv_pages, kr_pages):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} kernel reads latent pages 16 bytes at "
-                             f"a time: their storage must be 16-byte aligned")
+    if q.data_ptr() % 16 or ckv_pages.data_ptr() % 16 \
+            or kr_pages.data_ptr() % 16:
+        raise ValueError(f"{name} kernel reads queries and latent pages "
+                         f"16 bytes at a time: their storage must be "
+                         f"16-byte aligned")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window must be positive, got {window}")
 
 
 def _launch_mla(name, q, ckv_pages, kr_pages, pos_pages, page_table, q_pos,
-                scale, window):
-    """Both MLA wrappers launch the one kernel; q is (B, S, H, r + rd)."""
+                scale, window, S):
+    """Both MLA wrappers launch the one kernel by ``mla_plan`` (made once
+    per shape); q is (B, H, r + rd) at S 1 (no view is made: views cost
+    host time), else (B, S, H, r + rd); the output has q's leading shape.
+    Above one split the f32 partials are one allocation: the accumulators
+    (splits, B*S*H, r), then (m, l) per row."""
     _check_mla_cuda(name, q, ckv_pages, kr_pages, pos_pages, page_table,
                     q_pos, window)
-    B, S, H, _ = q.shape
-    page, r = ckv_pages.shape[1], ckv_pages.shape[2]
-    out = torch.empty((B, S, H, r), dtype=q.dtype, device=q.device)
+    qs = q.shape
+    B, H = qs[0], qs[-2]
+    _, page, r = ckv_pages.shape
+    n_max = page_table.shape[1]
+    dev = q.get_device()
+    key = (B, S, H, n_max * page, dev)
+    plan = _mla_plans.get(key)
+    if plan is None:
+        plan = _mla_plans[key] = mla_plan(B, S, H, n_max * page,
+                                          _sm_count(q.device))
+    LAST_PLAN[name] = plan
+    splits = plan["splits"]
+    out = torch.empty((*qs[:-1], r), dtype=q.dtype, device=q.device)
+    scratch = _NO_SCRATCH
+    if splits > 1:
+        rows = splits * B * S * H
+        part = torch.empty(rows * (r + 2), dtype=torch.float32,
+                           device=q.device)
+        base = part.data_ptr()
+        scratch = (ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * rows * r))
     launch = build.entry("paged_mla_attention", "paged_mla_attention_launch",
                          _MLA_ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     launch(build.ptr(q), build.ptr(ckv_pages), build.ptr(kr_pages),
            build.ptr(pos_pages), build.ptr(page_table), build.ptr(q_pos),
-           build.ptr(out), B, S, H, r, kr_pages.shape[-1], page,
-           page_table.shape[1], _DTYPES[q.dtype], window or 0, float(scale),
-           ctypes.c_void_p(stream))
+           build.ptr(out), *scratch, B, S, H, r, kr_pages.shape[2], page,
+           n_max, _DTYPES[q.dtype], window or 0, splits,
+           plan["keys_per_split"], float(scale), build.stream(q))
     count_launch(name)
     return out
 
@@ -467,8 +548,8 @@ def paged_mla_decode_attention(q, ckv_pages, kr_pages, pos_pages, page_table,
             scale=scale, window=window)
     if q.dim() != 3 or q_pos.dim() != 1:
         raise ValueError(f"{name}: q must be (B, H, r + rd) and q_pos (B,)")
-    return _launch_mla(name, q[:, None], ckv_pages, kr_pages, pos_pages,
-                       page_table, q_pos[:, None], scale, window)[:, 0]
+    return _launch_mla(name, q, ckv_pages, kr_pages, pos_pages, page_table,
+                       q_pos, scale, window, 1)
 
 
 def paged_mla_verify_attention(q, ckv_pages, kr_pages, pos_pages, page_table,
@@ -490,4 +571,4 @@ def paged_mla_verify_attention(q, ckv_pages, kr_pages, pos_pages, page_table,
         raise ValueError(f"{name}: q must be (B, S, H, r + rd) and q_pos "
                          f"(B, S)")
     return _launch_mla(name, q, ckv_pages, kr_pages, pos_pages, page_table,
-                       q_pos, scale, window)
+                       q_pos, scale, window, q.shape[1])

@@ -135,12 +135,10 @@ def _forward_kernel(q, k, v, q_pos, kv_pos, q_seg, kv_seg, scale: float,
         if q.dtype != torch.float32:
             o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     launch = build.entry("spa_attention", "spa_attention_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     launch(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(q_pos),
            build.ptr(kv_pos), build.ptr(q_seg), build.ptr(kv_seg),
            build.ptr(out), _optional_ptr(lse), _optional_ptr(o32), B, Sq, Skv,
-           H, Hkv, D, _DTYPES[q.dtype], window or 0, scale,
-           ctypes.c_void_p(stream))
+           H, Hkv, D, _DTYPES[q.dtype], window or 0, scale, build.stream(q))
     count_launch("spa_attention")
     if stats and o32 is None:
         o32 = out
@@ -178,12 +176,11 @@ def spa_attention_bwd(q, k, v, q_pos, kv_pos, q_seg, kv_seg, o32, lse, dout,
                                     device=q.device) for _ in range(2))
     launch = build.entry("spa_attention_bwd", "spa_attention_bwd_launch",
                          _BWD_ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     launch(*(build.ptr(t) for t in (q, k, v, q_pos, kv_pos, q_seg, kv_seg,
                                     o32, lse, dout, delta, dk_part, dv_part,
                                     dq, dk, dv)),
            B, Sq, Skv, H, Hkv, D, _DTYPES[q.dtype], window or 0, scale,
-           ctypes.c_void_p(stream))
+           build.stream(q))
     count_launch("spa_attention_bwd")
     return dq, dk, dv
 

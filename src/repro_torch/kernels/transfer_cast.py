@@ -42,8 +42,7 @@ def transfer_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if x.numel() == 0:
         return out
     launch = build.entry("transfer_cast", "transfer_cast_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     launch(build.ptr(x), build.ptr(out), x.numel(), _WIRE[dtype],
-           ctypes.c_void_p(stream))
+           build.stream(x))
     count_launch("transfer_cast")
     return out

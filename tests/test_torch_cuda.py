@@ -376,7 +376,9 @@ SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0,
 
 @pytest.mark.parametrize("wire", ["bfloat16", "float16"])
 @pytest.mark.parametrize("n,offset", [(0, 0), (7, 0), (4096, 0), (1000003, 0),
-                                      (1000, 1)])
+                                      (1000, 1), (3, 1), (5, 2),
+                                      (30_000_001, 0),    # many waves, ragged
+                                      (20_000_003, 3)])   # misaligned, ragged
 def test_transfer_cast_kernel_is_bitwise_to(dev, wire, n, offset):
     rng = np.random.RandomState(n)
     x = (rng.randn(n + offset) * 10.0 ** rng.randint(-8, 8, n + offset)
@@ -519,15 +521,21 @@ def test_reduced_spec_engine_on_card_matches_cpu(dev):
 @pytest.mark.parametrize("B,S,H,r,rd,page,lens,window", [
     (3, 1, 4, 64, 16, 4, (6, 17, 9), None),              # reduced, decode
     (3, 4, 4, 64, 16, 4, (6, 17, 9), None),              # reduced, verify
+    (3, 1, 4, 64, 16, 8, (6, 700, 301), None),           # reduced, 3 splits
+    (2, 4, 4, 64, 16, 8, (530, 33), 40),                 # reduced, windowed
     (4, 1, 16, 512, 64, 16, (64, 400, 1088, 700), None),  # serving decode
-    (4, 5, 16, 512, 64, 16, (100, 1060, 517, 64), None),  # spec verify
+    (4, 5, 16, 512, 64, 16, (100, 1060, 517, 64), None),  # spec verify: 80 rows
     (2, 5, 16, 512, 64, 16, (300, 777), 128),             # windowed
+    (16, 1, 16, 512, 64, 16, _LONG, None),                # to 8k, dead splits
+    (1, 1, 16, 512, 64, 16, (6000,), None),               # one long row
+    (1, 5, 16, 512, 64, 16, (3000,), None),               # long verify block
 ])
 def test_paged_mla_kernel_matches_plain(dev, dtype, B, S, H, r, rd, page,
                                         lens, window):
     """Both MLA wrappers launch the one kernel; S == 1 through the decode
     wrapper (row 0 then an inactive slot at pos 2^30), S > 1 through the
-    verify wrapper; MLA's scale (nd + rd)^-0.5."""
+    verify wrapper; MLA's scale (nd + rd)^-0.5. Two launches give the same
+    bits and count one launch each."""
     rng = np.random.RandomState(4)
     P, pos, table, q_pos = _verify_pool(rng, B, S, page, lens)
     dt = getattr(torch, dtype)
@@ -550,12 +558,8 @@ def test_paged_mla_kernel_matches_plain(dev, dtype, B, S, H, r, rd, page,
                            paged_mla_verify_attention,
                            paged_mla_verify_attention_plain)
         args = (q, *pools, t(q_pos))
-    n0 = dict(LAUNCHES)
-    got = fn(*args, scale=scale, window=window)
-    assert LAUNCHES[name] == n0[name] + 1
-    assert sum(LAUNCHES.values()) == sum(n0.values()) + 1
+    got = _launch_twice(name, fn, *args, scale=scale, window=window)
     want = plain(*_f32(*args), scale=scale, window=window)
-    torch.cuda.synchronize()
     assert got.shape == args[0].shape[:-1] + (r,)
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
 

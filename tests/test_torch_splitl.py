@@ -248,7 +248,7 @@ def test_wrapper_hands_the_kernel_its_plan(monkeypatch, verify):
     wrapper also records in LAST_PLAN. The launch is recorded instead of
     run. At B 32, Hkv 8 and 288 keys the plan holds 128 keys a split in 3
     splits, where 3 splits of ceil(9 / 3) steps would hold 96."""
-    import types
+    import ctypes
     import repro_torch.kernels.decode_attention as da
     calls = []
     monkeypatch.setattr(da.build, "entry",
@@ -256,8 +256,7 @@ def test_wrapper_hands_the_kernel_its_plan(monkeypatch, verify):
                         lambda *a: calls.append((len(argtypes), a)))
     monkeypatch.setattr(da, "_sm_count", lambda device: 132)
     monkeypatch.setattr(da, "count_launch", lambda name: None)
-    monkeypatch.setattr(da.torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(da.build, "stream", lambda t: ctypes.c_void_p(0))
     B, H, Hkv, D, page, n_max = 32, 24, 8, 64, 16, 18
     S = 512 if verify else 1
     if verify:
