@@ -943,6 +943,20 @@ def reduced_parity(torch, np, dev, seed: int):
 
 SPEC_K = 4
 
+# phase 2's MLA cases at full-width heads (spa_ab.py --kernels mla times
+# the same): name -> mla_setup's dtype and keywords. Serving decode (B 4)
+# and the spec verify block (B 4, S 5) at phase 11's and 12's shapes, B 16
+# to 8k, in bf16 and f32; the verify block with a window.
+MLA_CASES = {
+    f"{case}_{dtype}": dict(dtype=dtype, **kw)
+    for dtype in ("bfloat16", "float32")
+    for case, kw in (
+        ("decode_serve", dict(B=4, S=1, ctx_min=64, ctx_max=1088)),
+        ("decode_long", dict(B=16, S=1, ctx_max=8192)),
+        ("verify_spec", dict(B=4, S=SPEC_K + 1, ctx_max=1060)))}
+MLA_CASES["verify_window_bfloat16"] = dict(
+    dtype="bfloat16", B=4, S=SPEC_K + 1, ctx_max=1060, window=256)
+
 
 def _pages_conserved(eng) -> bool:
     """Drained engine: every page is free or held by the radix tree, and
@@ -1630,19 +1644,9 @@ def main() -> None:
         contiguous_case(torch, timer, dev, gen, "bfloat16", verify=False),
         contiguous_case(torch, timer, dev, gen, "bfloat16", verify=True),
     ]
-    # the MLA kernel at full-width heads, bound by name where each is made
-    mla = {}
-    for dtype in ("bfloat16", "float32"):
-        mla["decode_serve_" + dtype] = mla_case(
-            torch, timer, dev, gen, dtype, B=4, S=1, ctx_min=64,
-            ctx_max=1088)
-        mla["decode_long_" + dtype] = mla_case(
-            torch, timer, dev, gen, dtype, B=16, S=1, ctx_max=8192)
-        mla["verify_spec_" + dtype] = mla_case(
-            torch, timer, dev, gen, dtype, B=4, S=SPEC_K + 1, ctx_max=1060)
-    mla["verify_window_bfloat16"] = mla_case(
-        torch, timer, dev, gen, "bfloat16", B=4, S=SPEC_K + 1, ctx_max=1060,
-        window=256)
+    # the MLA kernel at full-width heads
+    mla = {name: mla_case(torch, timer, dev, gen, **kw)
+           for name, kw in MLA_CASES.items()}
     cases += [{"case": k, **c} for k, c in mla.items()]
     bwd_cases += [train_bwd, train_bwd_bf16]
     for c in cases + bwd_cases + [cast]:
@@ -1740,9 +1744,9 @@ def main() -> None:
         **{key: spec_verify[key] for key in timing},
         "suffix_prefill": {key: suffix[key] for key in timing}})
     # the MLA kernel: its decode case with phase 11's launches, its verify
-    # case with phase 12's (bf16, the serving shapes)
-    # (bf16, the serving shapes), with the plan's splits and blocks; the
-    # long decode, f32 and windowed cases of phase 2 beside them
+    # case with phase 12's (bf16, the serving shapes), with the plan's
+    # splits and blocks; the long decode, f32 and windowed cases of phase
+    # 2 beside them
     plan_keys = ("splits", "blocks")
     for name, replaces, c, run, more in (
             ("paged_mla_decode_attention", 277, mla["decode_serve_bfloat16"],

@@ -25,9 +25,10 @@ heads):
     verify_attention (bf16); against a page gather plus
     scaled_dot_product_attention (SDPA alone for the contiguous ones);
   * mla: the paged MLA kernel at full-width mla_dense heads (H 16, r 512,
-    rd 64): decode at B 4 (contexts 64 to 1088) and B 16 (to 8192),
-    the spec verify block (B 4, S 5), bf16 and f32, and the windowed
-    verify block (bf16); against a latent page gather plus SDPA;
+    rd 64), chip_smoke's MLA_CASES: decode at B 4 (contexts 64 to 1088)
+    and B 16 (to 8192), the spec verify block (B 4, S 5), bf16 and f32,
+    and the windowed verify block (bf16); against a latent page gather
+    plus SDPA;
   * cast: transfer_cast on every leaf of the training run's parameter
     tree (12-layer llama3.2-3b, f32 -> bf16), against x.to(torch.bfloat16);
     besides each leaf's lines, one line per version sums the medians over
@@ -40,12 +41,13 @@ with the median, quartiles and mean over the rounds and the rounds the
 Timer could not keep free of host time, and the card's name and power
 limit first; the new tree's lines say whether its output (the SPA
 forward's, the paged wrapper's, the cast's) is bitwise that of the old
-tree (the cast's also whether it is bitwise x.to's). For the paged and
-MLA cases it also prints each tree's host time per wrapper call
-(``"kind": "host"``, HOST_ROUNDS rounds): the wall time of HOST_CALLS
-calls queued behind a spin that keeps the card busy throughout (checked:
-the spin is still running when the last call is queued), so no call
-waits on the device. Without CUDA it exits non-zero.
+tree (the cast's also whether it is bitwise x.to's); a paged or MLA
+tree's lines also carry the plan its wrapper recorded (``LAST_PLAN``, null
+where the tree records none). For the paged and MLA cases it also prints
+each tree's host time per wrapper call (``"kind": "host"``, HOST_ROUNDS
+rounds): the wall time of HOST_CALLS calls queued behind a spin that
+keeps the card busy throughout (checked: the spin is still running when
+the last call is queued), so no call waits on the device. Without CUDA it exits non-zero.
 """
 from __future__ import annotations
 
@@ -86,17 +88,6 @@ PAGED = [("decode_b4", "decode", dict(dtype="bfloat16", B=4, ctx_max=1056)),
           dict(dtype="bfloat16", verify=False)),
          ("verify_contiguous", "contiguous",
           dict(dtype="bfloat16", verify=True))]
-
-
-# chip_smoke's phase-2 MLA cases: (label, setup, keywords)
-MLA = [(case, "mla", dict(dtype=dtype, **kw))
-       for dtype in ("bfloat16", "float32")
-       for case, kw in (("decode_serve", dict(B=4, S=1, ctx_min=64,
-                                               ctx_max=1088)),
-                        ("decode_long", dict(B=16, S=1, ctx_max=8192)),
-                        ("verify_spec", dict(B=4, S=5, ctx_max=1060)))] + [
-    ("verify_window256", "mla",
-     dict(dtype="bfloat16", B=4, S=5, ctx_max=1060, window=256))]
 
 
 def load_tree(tree: str):
@@ -251,7 +242,8 @@ def main() -> None:
                       **({"forward_equal_to_old": same}
                          if (kind, name) == ("fwd", "new") else {})})
     cases = (PAGED if "paged" in groups else []) + \
-        (MLA if "mla" in groups else [])
+        ([(name, "mla", kw) for name, kw in cs.MLA_CASES.items()]
+         if "mla" in groups else [])
     for case, setup, kw in cases:
         kw = dict(kw)
         dtype = kw.pop("dtype")
@@ -262,14 +254,17 @@ def main() -> None:
                 for name, tree in mods.items()}
         runs["library"] = c["library"]
         got = {name: runs[name]().float() for name in mods}
+        plans = {name: getattr(tree["decode_attention"], "LAST_PLAN",
+                               {}).get(c["name"])
+                 for name, tree in mods.items()}
         want = c["plain"](*cs.f32(a), **k)
         times, uncovered = interleaved(timer, runs, args.rounds)
         for name, ts in times.items():
             emit({"dtype": dtype, "case": case, "kind": c["name"],
                   "version": name, **summary(ts),
                   "uncovered_rounds": uncovered[name],
-                  **({"max_abs_err": float((got[name] - want).abs().max())}
-                     if name in got else {}),
+                  **({"max_abs_err": float((got[name] - want).abs().max()),
+                      "plan": plans[name]} if name in got else {}),
                   **({"equal_to_old": torch.equal(got["old"], got["new"])}
                      if name == "new" else {})})
         host = host_times(torch, {name: runs[name] for name in mods},

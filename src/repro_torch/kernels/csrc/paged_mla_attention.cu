@@ -65,10 +65,10 @@
 //   * f32 runs on the CUDA cores in register tiles (no TF32): each warp
 //     scores its 8 keys over all Dk, then owns Dv / 4 columns of P V.
 //     f32 accumulation, one rounding at the output.
-// What is left (mla_probe.py times variants that leave one part out;
-// PERF.md has the numbers): at B 16 with contexts to 8k the products
-// alone take about as long as the copies alone, mma.sync far below the
-// card's dense bf16 rate, and the two overlap only in part; a block's
+// What is left (timed with variants that leave one part out; PERF.md):
+// at B 16 with contexts to 8k the products alone take about as long as
+// the copies alone, mma.sync far below the card's dense bf16 rate, and
+// the two overlap only in part; a block's
 // prologue and epilogue and the separate combine add a fixed cost. wgmma
 // with the keys as its 64 rows (S^T = K Q^T) is the way to cut the
 // products.

@@ -234,8 +234,14 @@ def mla_plan(B: int, S: int, H: int, L: int, sms: int) -> dict:
     block more (the bf16 kernel's shared memory lets two blocks share an
     SM; a block left to a second wave would start its walk late), with 64
     to 1024 keys each (a split's positions, slots and live bits sit in
-    shared memory). The
-    f32 partials weigh on that choice: one split of one row group writes
+    shared memory). f32 knowingly takes the same plan, though its block
+    (188,480 bytes of shared memory before the keys) leaves room for one
+    an SM: sized for one f32 block an SM (8 splits of 1056 keys at B 16
+    to 8k, 6 of 192 in the verify block, each one wave) it ran 8 % and 3 %
+    slower on the H100 (PERF.md), probably because at mixed context
+    lengths the shorter splits spread the live keys more evenly over the
+    SMs (a split past a row's context ends at once). The f32 partials
+    weigh on the choice: one split of one row group writes
     16 x (r + 2) floats and the combine reads them once, 65,792 bytes at
     full width (r 512), against 294,912 bytes of bf16 latent rows in a
     256-key split (22 %; f32 rows: 11 %; reduced width, r 64 / rd 16: 8,448
