@@ -43,12 +43,14 @@ Phases, each printing one JSON line (every phase fails the run on error):
      are reset just before and read just after, and must equal 28 x
      prefills (SPA) and 28 x decode steps (paged decode);
   4. profile: 8 unprofiled decode steps of the same engine at 4 busy
-     slots (host wall time per step), then 8 more under torch.profiler
-     (device-busy time per step: the sum of kernel self times; the
-     kernels that take the most device time), and the device's idle
-     share estimated from the two windows;
+     slots (host wall time per step; the replays' device time from CUDA
+     events), then 8 more under torch.profiler (device-busy time per
+     step: the sum of kernel self times; the kernels that take the most
+     device time), and the device's idle share estimated from the two
+     windows;
   5. parity: reduced llama (2 layers, f32) on the card against the same
-     engine on the CPU, greedy: identical tokens, prefill logits within
+     engine on the CPU, greedy: identical tokens at D 1 and at D 3 (and
+     the card's D 3 tokens equal its D 1 tokens), prefill logits within
      1e-3;
   6. train: one periodic-async GRPO run through the port's build_pipeline:
      full-width llama3.2-3b cut to 12 layers, f32 parameters from --seed,
@@ -102,10 +104,35 @@ Phases, each printing one JSON line (every phase fails the run on error):
      forwards, MLA decode launches 0, every page back. Prints the
      acceptance rate and tokens per verify forward;
  13. mla_parity: reduced mla_dense (2 layers, f32), card against CPU,
-     greedy: identical tokens with spec off and on, spec tokens identical
-     to non-spec tokens, prefill logits within 1e-3.
+     greedy: identical tokens with spec off and on and at D 3, spec and D 3
+     tokens identical to non-spec D 1 tokens, prefill logits within 1e-3.
 
 Phases 8 and 9 run right after phase 4, on the same weights.
+
+From phase 3 on, every decode step (and every spec verify step) on the card
+is one replay of a CUDA graph the engine captured at its first
+``set_params`` (``src/repro_torch/core/graphs.py``): D 1 unless a phase
+says otherwise. A replay adds the captured kernels' launches to the
+counts, so the launch formulas count replays; the graph's warm-up call
+launches its kernels once for real, which the training run's formula
+counts (phases 3, 8, 9, 11 and 12 capture before their counts are reset).
+The profile phases also time each replay with CUDA events
+(``replay_device_ms_per_step``), beside torch.profiler's kernel sum.
+
+ 14. device_loop: the device-resident decode loop, D 1 against D 8 in
+     interleaved rounds (D 1, D 8, D 1, D 8, D 1, D 8): (a) full-width
+     llama3.2-3b on phase 3's workload and (b) full-width mla_dense on
+     phase 11's (engines that hold 64 new tokens a row, so the profile
+     windows of 16 decode steps keep 4 slots busy at D 8): TPOT and TTFT
+     p50/p99, tok/s, host wall ms per decode step, device-busy ms per
+     step and the idle share (the profiler's and the replay events'), the
+     graph's warm-up and capture ms and a later set_params' weight copy;
+     checks that every request's tokens are identical at D 1 and D 8 and
+     across rounds, that launches equal L x decode steps made of replays,
+     and that every page returns; (c) phase 6's training run for 2
+     iterations at decode_drain_interval 8 (every check of phase 6), its
+     iteration wall, infer, train, TPSPD and sync gap beside phase 6's D 1
+     iterations.
 
 The SPA kernels run bf16 on the tensor cores (wgmma, with the
 probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
@@ -835,63 +862,97 @@ def serve_full_width(torch, np, dev, seed: int):
         "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
         "tpot_p50_s": m["tpot_p50_s"], "tpot_p99_s": m["tpot_p99_s"],
         "prefills": snap["prefills"], "decode_steps": snap["decode_steps"],
+        "graph_replays": snap["graph_replays"], "graph": eng.capture_ms,
         "peak_pages": stats["peak_pages"], "launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         "first_tokens": [r.tokens[:8] for r in reqs[:2]],
     }
 
 
+class _ReplayEvents:
+    """Stands in for an engine's captured CUDA graph and records a pair of
+    CUDA events around each replay: the device time of the replays,
+    whether or not torch.profiler attributes the kernels inside a graph."""
+
+    def __init__(self, torch, graph):
+        self.torch, self.graph, self.pairs = torch, graph, []
+
+    def replay(self):
+        pair = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        self.graph.replay()
+        pair[1].record()
+        self.pairs.append(pair)
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
 def profile_decode(torch, np, eng, prompts, seed: int, steps: int = 8,
-                   kernels=()):
+                   kernels=(), max_new: int = 32):
     """Device busy and idle time of decode steps with every slot busy
     (prefills happen before the windows open). Two adjacent windows of
-    ``steps`` steps each: the first unprofiled, for the host wall time of
-    a step; the second under torch.profiler, for the device-busy time of
-    a step (the profiler slows the host, not the kernels). The idle share
-    is an estimate from the two windows. ``kernels``: names whose device
-    time per step (summed over every kernel whose name holds one) is
-    reported apart."""
+    about ``steps`` decode steps each (``steps // D`` engine steps of D
+    decode steps): the first unprofiled, for the host wall time of a
+    decode step, and the device time of the graph replays (CUDA events
+    around each replay); the second under torch.profiler, for the
+    device-busy time of a step (the sum of kernel self times; the profiler
+    slows the host, not the kernels). The idle shares are estimates from
+    the two windows. ``kernels``: names whose device time per step
+    (summed over every kernel whose name holds one) is reported apart."""
     from torch.profiler import ProfilerActivity, profile
+    calls = max(1, steps // eng.drain)
 
-    def wall_ms_per_step() -> float:
+    def window():
+        """(host wall ms, decode steps, replay device ms) of ``calls``
+        engine steps."""
+        timer = _ReplayEvents(torch, eng._graph.graph)
+        eng._graph.graph = timer
+        n0 = eng.decode_steps
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(calls):
             eng.step()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / steps
-    handles = [eng.submit(p, (seed, 1000 + i), max_new=32)
+        wall = (time.perf_counter() - t0) * 1e3
+        eng._graph.graph = timer.graph
+        return wall, eng.decode_steps - n0, timer.ms()
+    handles = [eng.submit(p, (seed, 1000 + i), max_new=max_new)
                for i, p in enumerate(prompts[:eng.B])]
-    eng.step()                                  # admission + prefills
+    eng.step()              # admission + prefills (+ the first block)
     torch.cuda.synchronize()
-    wall_ms = wall_ms_per_step()
+    wall_ms, n, replay_ms = window()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled_wall_ms = wall_ms_per_step()
+        p_wall_ms, p_n, _ = window()
     while eng.step():
         pass
     if not all(h.done() for h in handles):
         fail("profiled requests did not complete")
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / p_n
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     return {
-        "phase": "profile", "steps": steps, "slots_busy": eng.B,
-        "wall_ms_per_step": wall_ms,
-        "profiled_wall_ms_per_step": profiled_wall_ms,
+        "phase": "profile", "drain_interval": eng.drain,
+        "decode_steps_per_window": n, "slots_busy": eng.B,
+        "wall_ms_per_step": wall_ms / n,
+        "profiled_wall_ms_per_step": p_wall_ms / p_n,
         "device_busy_ms_per_step": busy_ms,
         # busy time of the profiled window over wall time of the unprofiled
         # one; null when the profiler saw no device activity on this machine
-        "device_idle_share_est": (1.0 - busy_ms / wall_ms) if busy_ms
+        "device_idle_share_est": (1.0 - busy_ms * n / wall_ms) if busy_ms
         else None,
+        # the same from the replays' CUDA events (unprofiled window)
+        "replay_device_ms_per_step": replay_ms / n,
+        "device_idle_share_replays": 1.0 - replay_ms / wall_ms,
         "top_kernels_ms_per_step": [
-            [e.key[:80], e.self_device_time_total / 1e3 / steps, e.count]
+            [e.key[:80], e.self_device_time_total / 1e3 / p_n, e.count]
             for e in top],
         "kernel_ms_per_step": {
             name: sum(e.self_device_time_total for e in events
-                      if name in e.key) / 1e3 / steps for name in kernels},
+                      if name in e.key) / 1e3 / p_n for name in kernels},
         "kernel_launches_per_step": {
-            name: sum(e.count for e in events if name in e.key) / steps
+            name: sum(e.count for e in events if name in e.key) / p_n
             for name in kernels},
     }
 
@@ -917,13 +978,21 @@ def reduced_parity(torch, np, dev, seed: int):
                for n in rng.randint(5, 48, size=4)]
     kw = dict(max_prompt_len=48, max_new=16, num_slots=2, page_size=16,
               temperature=0.0, seed=seed)
-    done_cpu, _ = serve_paged(cfg, prompts, device="cpu", params=p_cpu, **kw)
-    done_gpu, _ = serve_paged(cfg, prompts, device=dev, params=p_gpu, **kw)
-    tok_cpu = {c.request_id: c.response_ids.tolist() for c in done_cpu}
-    tok_gpu = {c.request_id: c.response_ids.tolist() for c in done_gpu}
+    def tokens(where, params, drain):
+        done, _ = serve_paged(cfg, prompts, device=where, params=params,
+                              drain_interval=drain, **kw)
+        return {c.request_id: c.response_ids.tolist() for c in done}
+    tok_cpu = tokens("cpu", p_cpu, 1)
+    tok_gpu = tokens(dev, p_gpu, 1)
     if tok_cpu != tok_gpu:
         fail(f"greedy tokens differ between card and CPU: {tok_gpu} vs "
              f"{tok_cpu}")
+    # D 3: the card's 3-step graph against the CPU engine at D 3 and the
+    # card's own D 1 tokens
+    tok_gpu3, tok_cpu3 = tokens(dev, p_gpu, 3), tokens("cpu", p_cpu, 3)
+    if not tok_gpu3 == tok_cpu3 == tok_gpu:
+        fail(f"greedy tokens at D 3 differ: card {tok_gpu3}, CPU "
+             f"{tok_cpu3}, card at D 1 {tok_gpu}")
     toks = torch.from_numpy(rng.randint(3, cfg.vocab_size, size=(2, 48)))
     lg_cpu, _ = forward(p_cpu, cfg, toks)
     lg_gpu, _ = forward(p_gpu, cfg, toks.to(dev))
@@ -933,8 +1002,8 @@ def reduced_parity(torch, np, dev, seed: int):
     return {"phase": "parity", "arch": cfg.name, "dtype": "float32",
             "requests": len(prompts),
             "tokens": sum(len(t) for t in tok_cpu.values()),
-            "tokens_identical": True, "prefill_logits_max_abs_err": err,
-            "tol": 1e-3}
+            "tokens_identical": True, "drain_intervals": [1, 3],
+            "prefill_logits_max_abs_err": err, "tol": 1e-3}
 
 
 # ---------------------------------------------------------------------
@@ -1041,13 +1110,17 @@ def radix_serve(torch, np, dev, params, seed: int):
     for spec_k in (0, SPEC_K):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        reset_launch_counts()
-        t0 = time.perf_counter()
         full = len(system) + int(sfx_lens.max())
         eng = build_paged_engine(cfg, max_prompt_len=full, max_new=32,
                                  num_slots=len(suffixes), page_size=16,
                                  temperature=0.7, spec_k=spec_k,
                                  prefix_cache=True, device=dev)
+        # the first set_params captures the step's graph (its warm-up
+        # launches are not the serving run's)
+        eng.set_params(params)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
         done, stats = serve_shared(cfg, system, suffixes, max_prompt_len=full,
                                    max_new=32, page_size=16, temperature=0.7,
                                    seed=seed, spec_k=spec_k, params=params,
@@ -1325,6 +1398,14 @@ def mla_parity(torch, np, dev, seed: int):
                                    **kw)[0])
     plain_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
                                    **kw)[0])
+    # D 3: the card's 3-step graph against the CPU engine at D 3
+    d3_gpu = tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
+                                drain_interval=3, **kw)[0])
+    d3_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+                                drain_interval=3, **kw)[0])
+    if not d3_gpu == d3_cpu == plain_gpu:
+        fail(f"mla greedy tokens at D 3 differ: card {d3_gpu}, CPU "
+             f"{d3_cpu}, card at D 1 {plain_gpu}")
     done_gpu, spec_stats = serve_paged(cfg, prompts, device=dev,
                                        params=p_gpu, spec_k=SPEC_K, **kw)
     spec_gpu = tokens(done_gpu)
@@ -1345,6 +1426,7 @@ def mla_parity(torch, np, dev, seed: int):
            "spec_acceptance_rate": spec_stats["acceptance_rate"],
            "spec_tokens_per_forward": spec_stats["tokens_per_forward"],
            "tokens_identical_card_cpu_spec_nonspec": True,
+           "drain_intervals": [1, 3],
            "prefill_logits_max_abs_err": err, "tol": 1e-3,
            "launches_card": launches}
     if err > 1e-3 or launches["paged_mla_decode_attention"] == 0 or \
@@ -1376,7 +1458,8 @@ def _pool_is_bf16_policy(torch, pool_params, policy) -> bool:
                                _tree_leaves(policy)))
 
 
-def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
+def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
+                     drain: int = 1):
     from repro_torch.configs.base import RLConfig
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.train import build_pipeline
@@ -1387,7 +1470,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
                   max_prompt_len=TRAIN_PROMPT, max_response_len=TRAIN_RESP,
                   shared_prompt_attention=True, capture_logprobs=True,
                   transfer_wire_dtype="bfloat16", transfer_overlap=True,
-                  seed=seed)
+                  decode_drain_interval=drain, seed=seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
@@ -1416,6 +1499,9 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
     L = cfg.num_layers
     prefills = sum(h.metrics["prefills"] for h in hist)
     steps = sum(h.metrics["decode_steps"] for h in hist)
+    # the decode graph's warm-up (at the first flip, in iteration 0's
+    # boundary) runs D real decode steps
+    warm = sum(h.metrics["warmup_steps"] for h in hist)
     cap, rec = sched.captured_micro_steps, sched.recomputed_micro_steps
     n_leaves = len(sched.transfer.plan.leaves)
     publishes = len(sched.transfer.publishes)
@@ -1424,7 +1510,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
         # recompute step: old L + ref L + policy L + recompute L
         "spa_attention": L * (prefills + 3 * cap + 4 * rec),
         "spa_attention_bwd": L * (cap + rec),
-        "paged_decode_attention": L * steps,
+        "paged_decode_attention": L * (steps + warm),
         "paged_verify_attention": 0,           # spec and prefix are off
         "paged_mla_decode_attention": 0,       # llama: no MLA
         "paged_mla_verify_attention": 0,
@@ -1434,7 +1520,8 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
         "spa_attention": f"L*(prefills + 3*captured + 4*recomputed) = "
                          f"{L}*({prefills} + 3*{cap} + 4*{rec})",
         "spa_attention_bwd": f"L*(captured + recomputed) = {L}*({cap} + {rec})",
-        "paged_decode_attention": f"L*decode_steps = {L}*{steps}",
+        "paged_decode_attention": f"L*(decode_steps + warm-up steps) = "
+                                  f"{L}*({steps} + {warm})",
         "paged_verify_attention": "0 (spec and prefix cache off)",
         "paged_mla_decode_attention": "0 (no MLA)",
         "paged_mla_verify_attention": "0 (no MLA)",
@@ -1448,7 +1535,8 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
         "max_prompt_len": rl.max_prompt_len,
         "max_response_len": rl.max_response_len, "slots": rl.cbatch_slots,
         "spa": True, "capture_logprobs": True, "wire_dtype": "bfloat16",
-        "overlap": True, "setup_s": setup_s,
+        "overlap": True, "drain_interval": drain, "setup_s": setup_s,
+        "graph": parts["pool"].instances[0].paged_engine.capture_ms,
         "iterations": [{
             "iteration": h.iteration, "wall_s": h.wall_time,
             "infer_s": h.infer_time, "train_s": h.train_time,
@@ -1457,6 +1545,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3):
             "staleness": h.max_staleness, "reward_mean": h.reward_mean,
             "prefills": h.metrics["prefills"],
             "decode_steps": h.metrics["decode_steps"],
+            "graph_replays": h.metrics["graph_replays"],
             "generated_tokens": h.metrics["generated_tokens"]}
             for h in hist],
         "version": tri.version, "flips_bf16_bitwise": flips,
@@ -1547,6 +1636,158 @@ def train_parity(torch, np, dev, seed: int):
     if not (grad_err <= 2e-4 and param_err <= 2e-4) or \
             launches["spa_attention_bwd"] != cfg.num_layers:
         fail(f"train parity: card and CPU disagree: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 14: the device-resident decode loop, D 1 against D 8
+# ---------------------------------------------------------------------
+
+LOOP_DRAINS = (1, 8)
+LOOP_ROUNDS = 3
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def device_loop_serve(torch, np, dev, cfg, params, prompts, seed: int,
+                      kernel: str, profiled: tuple):
+    """Phase 3's (or 11's) workload through engines at D 1 and D 8, in
+    interleaved rounds (D 1, D 8, D 1, ...): latency, host wall and device
+    time per decode step, graph capture cost. Every request's tokens must
+    be identical at every D and in every round; launches must equal L x
+    decode steps, made of graph replays; every page must come back.
+    ``kernel`` is the decode wrapper, ``profiled`` its CUDA kernels' names
+    (their device ms per step is reported)."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine, serve_requests
+    # the engines hold 64 new tokens a row so that the profile windows
+    # keep 4 slots busy at D 8; the requests ask for 32, as in phase 3
+    kw = dict(max_prompt_len=1024, num_slots=4, page_size=16,
+              temperature=0.7)
+    L = cfg.num_layers
+    engines, setup = {}, {}
+    for D in LOOP_DRAINS:
+        eng = build_paged_engine(cfg, max_new=64, drain_interval=D,
+                                 device=dev, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.set_params(params)            # pool, weights, graph capture
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        eng.set_params(params)            # what every later flip costs
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        serve_requests(cfg, prompts[:1], params=params, engine=eng,
+                       seed=seed, arrivals=np.zeros(1), max_new=32,
+                       **kw)                          # warm-up request
+        engines[D] = eng
+        setup[D] = {"first_set_params_ms": first_ms, **eng.capture_ms,
+                    "weight_copy_ms": copy_ms,
+                    "graph_launch_tally": eng._graph.tally}
+    runs, tokens = [], []
+    for rnd in range(LOOP_ROUNDS):
+        for D in LOOP_DRAINS:
+            eng = engines[D]
+            eng.reset_stats()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            reqs, m, _ = serve_requests(
+                cfg, prompts, params=params, engine=eng, seed=seed,
+                arrivals=np.zeros(len(prompts)), max_new=32, **kw)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            snap = eng.stats_snapshot()
+            steps = snap["decode_steps"]
+            if launches[kernel] != L * steps or steps == 0 or \
+                    snap["graph_replays"] * D != steps:
+                fail(f"device_loop {cfg.name} D {D}: {kernel} launches "
+                     f"{launches[kernel]} != {L} x {steps} decode steps "
+                     f"({snap['graph_replays']} replays)")
+            if not _pages_conserved(eng):
+                fail(f"device_loop {cfg.name} D {D}: pages not returned")
+            for r in reqs:
+                if not 1 <= len(r.tokens) <= 32 or \
+                        not all(0 <= t < cfg.vocab_size for t in r.tokens):
+                    fail(f"device_loop: request {r.rid}: bad tokens")
+            tokens.append([r.tokens for r in reqs])
+            prof = profile_decode(torch, np, eng, prompts, seed, steps=16,
+                                  max_new=64, kernels=profiled)
+            runs.append({
+                "round": rnd, "drain_interval": D,
+                "tok_per_s": m["tok_per_s"], "makespan_s": m["makespan_s"],
+                "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
+                "tpot_p50_s": m["tpot_p50_s"], "tpot_p99_s": m["tpot_p99_s"],
+                "decode_steps": steps, "graph_replays": snap["graph_replays"],
+                "prefills": snap["prefills"],
+                "launches": {k: v for k, v in launches.items() if v},
+                **{k: prof[k] for k in (
+                    "decode_steps_per_window", "wall_ms_per_step",
+                    "device_busy_ms_per_step", "device_idle_share_est",
+                    "replay_device_ms_per_step", "device_idle_share_replays",
+                    "kernel_ms_per_step")}})
+    if any(t != tokens[0] for t in tokens):
+        fail(f"device_loop {cfg.name}: tokens differ between D 1 and D 8 "
+             f"or between rounds")
+    summary = {}
+    for D in LOOP_DRAINS:
+        mine = [r for r in runs if r["drain_interval"] == D]
+        summary[D] = {k: _median([r[k] for r in mine]) for k in (
+            "tpot_p50_s", "ttft_p50_s", "tok_per_s", "wall_ms_per_step",
+            "device_busy_ms_per_step", "replay_device_ms_per_step",
+            "device_idle_share_replays")}
+    return {"phase": "device_loop", "arch": cfg.name, "layers": L,
+            "dtype": cfg.param_dtype, "requests": len(prompts),
+            "max_new": 32, "slots": 4, "page": 16, "temperature": 0.7,
+            "drain_intervals": list(LOOP_DRAINS), "rounds": LOOP_ROUNDS,
+            "tokens_identical_across_d_and_rounds": True,
+            "generated_tokens": sum(len(t) for t in tokens[0]),
+            "setup": setup, "median_by_d": summary, "runs": runs}
+
+
+def device_loop(torch, np, dev, seed: int, train_d1: dict):
+    """Phase 14: (a) full-width llama3.2-3b on phase 3's workload and (b)
+    full-width mla_dense on phase 11's, each at D 1 and D 8 in interleaved
+    rounds; (c) phase 6's training run for 2 iterations at D 8 beside
+    phase 6's D 1 iterations from the same call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    out = []
+    for cfg, rng_seed, kernel, profiled in (
+            (get_config("llama3.2-3b"), seed, "paged_decode_attention",
+             ("splitl_kernel", "combine_kernel")),
+            (mla_dense_config(), seed + 11, "paged_mla_decode_attention",
+             MLA_PROFILE_KERNELS)):
+        params = init(cfg, seed=seed, device=dev)
+        rng = np.random.RandomState(rng_seed)     # phase 3's / 11's prompts
+        lens = rng.randint(64, 1025, size=8)
+        lens[int(np.argmax(lens))] = 1024
+        prompts = [rng.randint(3, cfg.vocab_size, size=(int(n),))
+                   .astype(np.int32) for n in lens]
+        out.append(device_loop_serve(torch, np, dev, cfg, params, prompts,
+                                     seed, kernel, profiled))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    d8 = train_full_width(torch, np, dev, seed, iterations=2,
+                          drain=LOOP_DRAINS[-1])
+    keys = ("wall_s", "infer_s", "train_s", "tpspd", "sync_gap_s",
+            "staleness", "decode_steps", "graph_replays")
+    out.append({
+        "phase": "device_loop_train", "arch": d8["arch"],
+        "layers": d8["layers"], "dtype": d8["dtype"],
+        "slots": d8["slots"], "N": d8["N"], "G": d8["G"],
+        "graph_d1": train_d1["graph"], "graph_d8": d8["graph"],
+        "iterations_d1": [{k: it[k] for k in keys}
+                          for it in train_d1["iterations"]],
+        "iterations_d8": [{k: it[k] for k in keys}
+                          for it in d8["iterations"]],
+        "launches_d8": d8["launches"],
+        "launch_formula_d8": d8["launch_formula"],
+        "peak_mem_gib_d8": d8["peak_mem_gib"]})
     return out
 
 
@@ -1709,6 +1950,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     emit(mla_parity(torch, np, dev, args.seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in device_loop(torch, np, dev, args.seed, train):
+        emit({**line, "card": smi})
 
     # the training run's launches, each kernel timed at that run's shapes
     meta = {

@@ -172,6 +172,12 @@ class RLConfig:
     # radix prefix cache on the paged engine: prompts sharing a token-span
     # prefix share its cached pages and prefill only their suffix
     prefix_cache: bool = False
+    # device-resident decode loop: the paged engine runs D decode steps a
+    # block (one CUDA-graph replay on the card) and drains its tokens to
+    # the host once per block, dispatching block n + 1 before block n is
+    # read. 1 drains every step. Tokens do not depend on D (per-row,
+    # per-step counter-based draws).
+    decode_drain_interval: int = 1
     # rollout-time logprob capture: under Proposition 1 the captured values
     # are the old-policy logprobs, so the grad step runs one reference
     # forward instead of the stacked old+ref pair

@@ -22,22 +22,38 @@ The KV cache is paged (``models/attention.py PagedCacheBackend``):
 Page 0 is the null page (pos 2^30, masked everywhere), page 1 the trash
 page inactive slots write into.
 
-Each step runs on the device in order: sample every slot's token from the
-logits in hand, write its K/V into the pool, attend over its pages (the
-paged flash-decode kernel on CUDA), and compute the next logits; the
-host then reads the step's tokens once (``_drain_block``). A prompt is
-prefilled by ``forward_hidden`` over a dense temporary cache (the SPA
-kernel on CUDA) and spliced into its pages. The engine drains every step
-(the JAX engine's ``drain_interval=1``).
+Each decode step runs on the device in order: sample every slot's token
+from the logits in hand, write its K/V into the pool, attend over its
+pages (the paged flash-decode kernel on CUDA), and compute the next
+logits. ``drain_interval`` D fuses D such steps into one block (the
+device-resident decode loop of the JAX engine): the host schedules each
+slot's next D steps from its frontier (``_Row.sched_t``), allocating the
+pages they write, and reads the block's (D, B) tokens once
+(``_drain_block``). A row that samples EOS inside a block sets its
+device-resident ``done`` flag, and its remaining steps decode PAD into the
+trash page. D 1 drains every step; D > 1 runs a one-deep pipeline: block
+n + 1 is dispatched before block n is drained. On the card one block is
+one CUDA-graph replay (``core/graphs.py``), captured at the first
+``set_params``; on the CPU the same step function runs eagerly. A prompt
+is prefilled by ``forward_hidden`` over a dense temporary cache (the SPA
+kernel on CUDA) and spliced into its pages, eagerly (its length varies).
+
+The whole engine runs on one stream, the current one of the thread that
+steps it: a finished row's pages return to the freelist while a later
+block may still be in flight, which is safe because that block runs the
+row masked and the next admission's prefill runs after it in stream
+order.
 
 Two planes layer on the pool:
 
   * ``spec_k > 0``, speculative decode (``spec/``): each step drafts k
     tokens per row, pre-allocates the block's speculative pages against
     the row's credit, runs ONE k+1-token verify forward through the
-    paged-verify kernel, commits 1..k+1 tokens per row by rejection
-    sampling (``_spec_step``), and rolls pages that hold only rejected
-    drafts back to the freelist (``_rollback_row``);
+    paged-verify kernel (one graph replay on the card), commits 1..k+1
+    tokens per row by rejection sampling (``_spec_step``), and rolls pages
+    that hold only rejected drafts back to the freelist
+    (``_rollback_row``). Spec engines drain every verify step, whatever
+    ``drain_interval`` says (as the JAX engine does);
   * ``prefix_cache=True``, the radix prefix cache (``core/radix.py``):
     admission walks the tree for the longest cached page-aligned prefix,
     retains the matched pages into the group's table, prefills ONLY the
@@ -59,13 +75,14 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig, require_engine_support
 from repro_torch.core.cbatch import Completed, SlotScheduler
+from repro_torch.core.graphs import StaticInputs, StepGraph
 from repro_torch.core.radix import RadixCache
 from repro_torch.data.tokenizer import Tokenizer
 from repro_torch.models import forward_hidden, init_caches, init_paged_caches
 from repro_torch.models.attention import INVALID_POS, cache_streams
 from repro_torch.models.layers import lm_head_weight
 from repro_torch.rl.rollout import (Key, RolloutBatch, _sample_token_rows,
-                                    row_generator, sampled_token_logprob)
+                                    row_seed, sampled_token_logprob)
 from repro_torch.spec import (PromptLookupDraft, commit_block, pack_row_block,
                               truncate_commit, verify_block)
 
@@ -162,7 +179,10 @@ class _Row:
     lps: list = dataclasses.field(default_factory=list)
     pages: list = dataclasses.field(default_factory=list)  # resp page k -> id
     credit: int = 0                  # future page allocations reserved
-    gen: Optional[torch.Generator] = None   # sampling generator (None: greedy)
+    seed: int = 0                    # sampling seed (rl/rollout.py row_seed)
+    # response positions dispatched: the committed length plus the steps
+    # of a block still in flight
+    sched_t: int = 0
     # spec decode: a fresh row still holds its prefill logits in hand; a
     # steady row's last committed token is unfed and rides into the next
     # verify block
@@ -171,12 +191,37 @@ class _Row:
 
 @dataclasses.dataclass
 class _Block:
-    """One dispatched decode step: the slots it ran and its device-side
-    (B,) token / logprob buffers, read back by ``_drain_block``."""
-    plan: list                       # [(slot, row), ...]
+    """One dispatched decode block: what it scheduled and its (D, B)
+    token / logprob buffers, read back by ``_drain_block`` once ``ready``
+    (the event after their copy to the host; None on the CPU) has
+    passed."""
+    plan: list                       # [(slot, row, t0, n_steps), ...]
     base: int                        # engine step counter at dispatch
-    toks: torch.Tensor
-    lps: Optional[torch.Tensor]
+    out: tuple                       # (toks (D, B) int64, lps (D, B) f32)
+    ready: Optional[torch.cuda.Event]
+
+
+def _tree_clone(tree: dict) -> dict:
+    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _tree_copy(dst: dict, src: dict) -> None:
+    """Copy ``src``'s leaves into ``dst``'s, which must match exactly
+    (``copy_`` would broadcast or cast silently)."""
+    if dst.keys() != src.keys():
+        raise ValueError(f"parameter tree keys changed: {sorted(dst)} vs "
+                         f"{sorted(src)}")
+    for k, d in dst.items():
+        v = src[k]
+        if isinstance(d, dict):
+            _tree_copy(d, v)
+        elif d.shape != v.shape or d.dtype != v.dtype:
+            raise ValueError(f"parameter {k}: {tuple(v.shape)} {v.dtype} "
+                             f"where the engine holds {tuple(d.shape)} "
+                             f"{d.dtype}")
+        else:
+            d.copy_(v)
 
 
 class GroupHandle:
@@ -211,18 +256,25 @@ class PagedGroupEngine:
 
     Thread-safe: ``submit`` registers a group's rows; any thread may drive
     ``step``, so concurrently submitted groups batch together at token
-    level. Runs on ``device`` (CUDA unless the caller asks for the CPU)."""
+    level. Runs on ``device`` (CUDA unless the caller asks for the CPU).
+    ``drain_interval`` is the decode block length D (the module
+    docstring)."""
 
     def __init__(self, cfg: ModelConfig, *, num_slots: int, page_size: int,
                  num_pages: int, max_prompt_len: int, max_new_tokens: int,
                  group_size: int, temperature: float = 1.0, top_p: float = 1.0,
                  eos_id: int = Tokenizer.EOS, pad_id: int = Tokenizer.PAD,
                  capture_logprobs: bool = True, spec_k: int = 0,
-                 prefix_cache: bool = False, device="cuda"):
+                 prefix_cache: bool = False, drain_interval: int = 1,
+                 device="cuda"):
         if num_slots < 1 or page_size < 1:
             raise ValueError(f"paged engine needs num_slots >= 1 and "
                              f"page_size >= 1, got {num_slots}/{page_size}")
+        if drain_interval < 1:
+            raise ValueError(f"drain_interval must be >= 1, "
+                             f"got {drain_interval}")
         require_engine_support(cfg, "paged")
+        self.drain = drain_interval
         self.spec_k = spec_k
         if spec_k:
             require_engine_support(cfg, "spec")
@@ -254,10 +306,21 @@ class PagedGroupEngine:
                 f"max-length prompt ({self.n_prompt_pages} pages) + one "
                 f"response page + {FIRST_PAGE} reserved")
 
+        # engine-owned device state, built at the first set_params (later
+        # calls copy new weights in: the captured graph reads these
+        # addresses)
         self.params = None
-        self.caches = None           # built lazily at first set_params
+        self.caches = None
         self.logits = None           # (B, V) f32 per-slot next-token logits
+        self.done = None             # (B,) bool: the slot's row stopped
         self._w_head = None          # (d, V) f32 LM head
+        self._inputs: Optional[StaticInputs] = None
+        self._graph: Optional[StepGraph] = None      # CUDA only
+        self._pending: Optional[_Block] = None       # in-flight block
+        # fresh pages one step invalidates, padded with the trash page:
+        # a row's D (or k + 1) positions span at most n // page + 2 pages
+        span = spec_k + 1 if spec_k else drain_interval
+        self._n_fresh = num_slots * (span // page_size + 2)
         self.alloc = PageAllocator(num_pages)
         self.radix = RadixCache(page_size, self.alloc) if prefix_cache \
             else None
@@ -271,6 +334,10 @@ class PagedGroupEngine:
         self.generated_tokens = 0
         self.prefills = 0            # cold prompt prefills (dense, SPA)
         self.warm_prefills = 0       # radix suffix prefills (paged verify)
+        self.graph_replays = 0       # blocks (or verify steps) replayed
+        # decode steps (verify steps) the graph's warm-up ran: real kernel
+        # launches outside any request
+        self.warmup_steps = 0
         self.reset_spec_stats()
         self.reset_prefix_stats()
 
@@ -308,6 +375,8 @@ class PagedGroupEngine:
                     "generated_tokens": self.generated_tokens,
                     "prefills": self.prefills,
                     "warm_prefills": self.warm_prefills,
+                    "graph_replays": self.graph_replays,
+                    "warmup_steps": self.warmup_steps,
                     "spec_steps": self.spec_steps,
                     "drafted_tokens": self.drafted_tokens,
                     "accepted_tokens": self.accepted_tokens,
@@ -372,23 +441,49 @@ class PagedGroupEngine:
         pools["pos_pages"][:, dest_pages] = pos_write.reshape(n_pp, self.page)
         return logits
 
-    def _decode_block(self, params, caches, logits, gens, live, wslots, pos,
-                      ptab):
-        """One decode step for every slot: sample from the logits in hand,
-        write each live slot's K/V at its flat slot, attend through the
-        page table, and compute the next logits. Inactive slots decode PAD
-        at pos 2^30 into the trash page. Returns ((B,) tokens, (B,) raw
-        logprobs or None, next logits)."""
-        tok = _sample_token_rows(logits, gens, self.temperature, self.top_p)
-        tok = torch.where(live, tok, self.pad_id)
-        lp = (torch.where(live, sampled_token_logprob(logits, tok), 0.0)
-              if self.capture_logprobs else None)
-        seg = torch.where(live, 0, -1).to(torch.int32)
-        h, _ = forward_hidden(params, self.cfg, tok[:, None],
-                              positions=pos[:, None], segments=seg[:, None],
-                              caches=caches, cache_offset=wslots,
-                              page_table=ptab)
-        return tok, lp, h[:, 0].float() @ self._w_head
+    def _decode_block(self):
+        """D fused decode steps for every slot, reading the block's inputs
+        from ``self._inputs`` (the captured step on the card). Per step j a
+        slot is LIVE when the host scheduled it (``active``, ``valid[j]``)
+        and its ``done`` flag is clear: it samples from the logits in hand
+        (its draw keyed by its seed and response position t0 + j), sets
+        ``done`` on EOS, writes its K/V at its flat slot, attends through
+        the page table and computes the next logits; other slots decode
+        PAD at pos 2^30 into the trash page. Fresh pages are invalidated
+        first. ``logits`` and ``done`` are updated in place. Returns ((D,
+        B) tokens, (D, B) raw logprobs, zeros when capture is off)."""
+        x = self._inputs
+        ptab = x["ptab"].to(torch.int32)
+        self._invalidate(x["fresh"])
+        valid, active = x["valid"].bool(), x["active"].bool()
+        pos0, t0, seeds, wsl = x["pos0"], x["t0"], x["seeds"], x["wsl"]
+        logits, done = self.logits, self.done
+        toks, lps = [], []
+        for j in range(self.drain):
+            tok = _sample_token_rows(logits, seeds, t0 + j, self.temperature,
+                                     self.top_p)
+            live = active & ~done & valid[j]
+            tok = torch.where(live, tok, self.pad_id)
+            if self.capture_logprobs:
+                lps.append(torch.where(
+                    live, sampled_token_logprob(logits, tok), 0.0))
+            done = done | (live & (tok == self.eos_id))
+            seg = torch.where(live, 0, -1).to(torch.int32)
+            h, _ = forward_hidden(
+                self.params, self.cfg, tok[:, None],
+                positions=torch.where(live, pos0 + j, INVALID_POS)[:, None],
+                segments=seg[:, None], caches=self.caches,
+                cache_offset=torch.where(live, wsl[j],
+                                         TRASH_PAGE * self.page),
+                page_table=ptab)
+            logits = h[:, 0].float() @ self._w_head
+            toks.append(tok)
+        self.logits.copy_(logits)
+        self.done.copy_(done)
+        lps = (torch.stack(lps) if lps else
+               torch.zeros((self.drain, self.B), dtype=torch.float32,
+                           device=self.device))
+        return torch.stack(toks), lps
 
     def _prefill_suffix(self, params, caches, tokens, positions, segs,
                         wslots, ptab, last: int) -> torch.Tensor:
@@ -404,42 +499,91 @@ class PagedGroupEngine:
                               cache_offset=wslots, page_table=ptab)
         return h[0, last].float() @ self._w_head
 
-    def _verify_step(self, params, caches, logits, tokens, positions, segs,
-                     wslots, ptab, gens, fresh, draft):
-        """One k+1-token spec verify forward for every slot: the block (the
-        unfed committed token + k drafts, or k drafts + a masked pad slot
-        for fresh rows) writes into its speculative pages and attends
-        through the pool; fresh rows use their prefill logits as p_0.
-        Masked slots point at the trash page with pos 2^30. The commit walk
-        runs on the device (``commit_block``), so the step returns one
-        (B, k+1) commit buffer, its logprobs (or None) and (B,) counts."""
-        h, _ = forward_hidden(params, self.cfg, tokens, positions=positions,
-                              segments=segs, caches=caches,
-                              cache_offset=wslots, page_table=ptab)
+    def _verify_step(self):
+        """One k+1-token spec verify forward for every slot, reading its
+        inputs from ``self._inputs`` (the captured step on the card): the
+        block (the unfed committed token + k drafts, or k drafts + a masked
+        pad slot for fresh rows) writes into its speculative pages and
+        attends through the pool; fresh rows use their prefill logits as
+        p_0. Masked slots point at the trash page with pos 2^30. The
+        commit walk runs on the device (``commit_block``), so the step
+        returns one (B, k+1) commit buffer, its logprobs (zeros when
+        capture is off) and (B,) counts."""
+        x = self._inputs
+        self._invalidate(x["fresh"])
+        h, _ = forward_hidden(self.params, self.cfg, x["tokens"],
+                              positions=x["positions"], segments=x["segs"],
+                              caches=self.caches, cache_offset=x["wslots"],
+                              page_table=x["ptab"].to(torch.int32))
         out = h.float() @ self._w_head                         # (B, k+1, V)
-        p = torch.where(fresh[:, None, None],
-                        torch.cat([logits[:, None], out[:, :-1]], dim=1),
+        p = torch.where(x["fresh_rows"].bool()[:, None, None],
+                        torch.cat([self.logits[:, None], out[:, :-1]], dim=1),
                         out)
+        draft = x["draft"]
         accept, alt, lp_d, lp_a = verify_block(
-            p, draft, gens, temperature=self.temperature, top_p=self.top_p,
-            capture=self.capture_logprobs)
-        toks, lps, count = commit_block(accept, alt, draft, lp_d, lp_a)
-        return toks, (lps if self.capture_logprobs else None), count
+            p, draft, x["seeds"], x["rc"], temperature=self.temperature,
+            top_p=self.top_p, capture=self.capture_logprobs)
+        return commit_block(accept, alt, draft, lp_d, lp_a)
 
-    def _invalidate_pages(self, pages: List[int]) -> None:
-        """Mark freshly allocated response pages invalid — they may hold a
-        previous sequence's stale (pos, kv) entries, which would otherwise
-        pass the causal mask."""
-        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
-        self.caches["layers"]["kv"]["pos_pages"][:, idx] = INVALID_POS
+    def _input_shapes(self) -> Dict[str, tuple]:
+        """The host-built inputs of the engine's step: the spec verify
+        step's or the decode block's."""
+        B, k = self.B, self.spec_k
+        common = {"ptab": (B, self.n_max), "seeds": (B,),
+                  "fresh": (self._n_fresh,)}
+        if k:
+            return {**common, "tokens": (B, k + 1), "positions": (B, k + 1),
+                    "segs": (B, k + 1), "wslots": (B, k + 1),
+                    "fresh_rows": (B,), "draft": (B, k), "rc": (B,)}
+        D = self.drain
+        return {**common, "wsl": (D, B), "valid": (D, B), "pos0": (B,),
+                "active": (B,), "t0": (B,)}
+
+    def _blank_inputs(self) -> Dict[str, np.ndarray]:
+        """Inputs with every slot inactive (the graph's warm-up)."""
+        fill = {"ptab": NULL_PAGE, "fresh": TRASH_PAGE, "pos0": INVALID_POS,
+                "positions": INVALID_POS, "segs": -1,
+                "tokens": self.pad_id, "wsl": TRASH_PAGE * self.page,
+                "wslots": TRASH_PAGE * self.page}
+        return {name: np.full(shape, fill.get(name, 0), np.int64)
+                for name, shape in self._input_shapes().items()}
+
+    def _run_step(self, fn, inputs: Dict[str, np.ndarray]):
+        """Upload a step's inputs and run it: one graph replay on the card
+        (outputs copied to the host, with their event), the step function
+        itself on the CPU. Returns (outputs, event or None)."""
+        self._inputs.upload(inputs)
+        if self._graph is None:
+            return fn(), None
+        self.graph_replays += 1
+        return self._graph.replay()
+
+    def _invalidate(self, pages: torch.Tensor) -> None:
+        """Mark freshly allocated pages invalid — they may hold a previous
+        sequence's stale (pos, kv) entries, which would otherwise pass the
+        causal mask. ``pages`` is a device index tensor (a fill, not an
+        indexed assignment: that would copy a host scalar, which a graph
+        capture refuses)."""
+        self.caches["layers"]["kv"]["pos_pages"].index_fill_(1, pages,
+                                                             INVALID_POS)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        """A host array on the device, copied from page-locked memory
+        without waiting for the device (on the CPU: the array itself)."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     # -- host API -----------------------------------------------------------
 
     def set_params(self, params) -> None:
         """Swap weights (iteration-boundary sync). Must be quiescent.
+
+        The first call copies the weights into engine-owned tensors,
+        builds the page pool and, on the card, captures the step as a CUDA
+        graph (``capture_ms``); every later call copies the new weights
+        into the same tensors, so the graph stays valid.
 
         The radix tree is dropped: its pages hold K/V written under the
         previous weights, and a warm admission under the new ones would
@@ -454,16 +598,44 @@ class PagedGroupEngine:
                 self.prefix_evicted_pages += self.alloc.release(
                     self.radix.pages())
                 self.radix = RadixCache(self.page, self.alloc)
-            self.params = params
-            # f32 LM head, as the JAX engine computes next-token logits
-            # (an f32 copy for bf16 weights: 1.5 GB at llama3.2-3b width)
-            self._w_head = lm_head_weight(params["embed"], self.cfg).float()
-            if self.caches is None:
-                self.caches = init_paged_caches(self.cfg, self.P, self.page,
-                                                device=self.device)
-                self.logits = torch.zeros((self.B, self.cfg.vocab_size),
-                                          dtype=torch.float32,
-                                          device=self.device)
+            if self.params is not None:
+                _tree_copy(self.params, params)
+                head = lm_head_weight(self.params["embed"], self.cfg)
+                if head.data_ptr() != self._w_head.data_ptr():
+                    self._w_head.copy_(head)     # its own f32 copy
+                return
+            self.params = _tree_clone(params)
+            # f32 LM head, as the JAX engine computes next-token logits: a
+            # view of f32 weights, an f32 copy of bf16 ones (1.5 GB at
+            # llama3.2-3b width)
+            self._w_head = lm_head_weight(self.params["embed"],
+                                          self.cfg).float()
+            self.caches = init_paged_caches(self.cfg, self.P, self.page,
+                                            device=self.device)
+            self.logits = torch.zeros((self.B, self.cfg.vocab_size),
+                                      dtype=torch.float32, device=self.device)
+            self.done = torch.zeros((self.B,), dtype=torch.bool,
+                                    device=self.device)
+            self._inputs = StaticInputs(self._input_shapes(), self.device)
+            if self.device.type == "cuda":
+                # the warm-up runs with every slot inactive (trash page,
+                # pos 2^30); logits and done flags start clean after it
+                self._inputs.upload(self._blank_inputs())
+                self._graph = StepGraph(
+                    self._verify_step if self.spec_k else self._decode_block,
+                    self.device)
+                self.warmup_steps += 1 if self.spec_k else self.drain
+                self.logits.zero_()
+                self.done.zero_()
+
+    @property
+    def capture_ms(self) -> Optional[dict]:
+        """The graph's warm-up and capture host times (ms), or None."""
+        with self._mutex:
+            if self._graph is None:
+                return None
+            return {"warmup_ms": self._graph.warmup_ms,
+                    "capture_ms": self._graph.capture_ms}
 
     def submit(self, prompt, key: Key, *, max_new: Optional[int] = None,
                on_token=None) -> GroupHandle:
@@ -515,6 +687,8 @@ class PagedGroupEngine:
             self.generated_tokens = 0
             self.prefills = 0
             self.warm_prefills = 0
+            self.graph_replays = 0
+            self.warmup_steps = 0
             self.alloc.min_free = self.alloc.num_free
             self.reset_spec_stats()
             self.reset_prefix_stats()
@@ -572,7 +746,7 @@ class PagedGroupEngine:
         tab = np.zeros((1, self.n_max), np.int32)
         tab[0, : n_pp - j0] = g.prompt_pages
         # fresh pages may hold a previous sequence's stale (pos, kv)
-        self._invalidate_pages(new)
+        self._invalidate(self._to_device(np.asarray(new, np.int64)))
         g.prompt_logits = self._prefill_suffix(
             self.params, self.caches, self._to_device(toks),
             self._to_device(pos), self._to_device(segs),
@@ -625,12 +799,16 @@ class PagedGroupEngine:
         tab = np.zeros((self.n_max,), np.int32)        # NULL padding
         tab[: len(g.prompt_pages)] = g.prompt_pages
         self._ptab[slot] = tab
+        # both land after any in-flight block in stream order: that block
+        # saw this slot masked (its previous row's done flag), the next
+        # one samples from the prompt logits with the flag clear
         self.logits[slot] = g.prompt_logits
+        self.done[slot] = False
         row.toks = []
         row.lps = []
         row.fresh = True
-        row.gen = (row_generator(g.key, row.idx, self.device)
-                   if self.temperature > 0 else None)
+        row.sched_t = 0
+        row.seed = row_seed(g.key, row.idx)
         if self.spec_k:
             self._draft.start(slot, g.prompt)
 
@@ -684,7 +862,6 @@ class PagedGroupEngine:
         row.pages = []
         self._outstanding -= row.credit
         row.credit = 0
-        row.gen = None
         self.sched.evict(slot)
         self._ptab[slot] = NULL_PAGE
         if len(g.done_rows) == g.G:
@@ -705,9 +882,19 @@ class PagedGroupEngine:
             h._event.set()
 
     def step(self) -> bool:
-        """One admission pass + one decode step for every slot (a spec
-        engine verifies a k+1-token block instead), drained before
-        returning. Returns False (and does nothing) when idle."""
+        """One admission pass + one D-step decode block for every slot (a
+        spec engine verifies a k+1-token block instead). Returns False
+        (and does nothing) when the engine is idle and no block is in
+        flight.
+
+        D 1 dispatches and drains synchronously, one drain per token step.
+        D > 1 runs the one-deep pipeline: block n + 1 is built and
+        dispatched BEFORE block n is drained, so block n's copy to the host
+        overlaps block n + 1's build and compute. The dispatch assumes no
+        row stopped inside the in-flight block; the device-resident
+        ``done`` flags make that exact (a stopped row's extra steps run
+        masked into the trash page), and the drain skips plan entries
+        whose slot was re-assigned."""
         with self._mutex:
             # admit one row at a time: _admit_row consumes pages, and the
             # gate must see the freelist as it actually is for the NEXT row
@@ -719,61 +906,90 @@ class PagedGroupEngine:
             act = self.sched.active_slots()
             if self.spec_k:
                 return self._spec_step(act) if act else False
-            blk = self._dispatch_block(act) if act else None
-            if blk is not None:
-                self._drain_block(blk)
-            return blk is not None
+            nxt = self._dispatch_block(act) if act else None
+            if self.drain == 1:
+                if nxt is not None:
+                    self._drain_block(nxt)
+                return nxt is not None
+            prev, self._pending = self._pending, nxt
+            if prev is not None:
+                self._drain_block(prev)
+            return nxt is not None or prev is not None
 
-    def _dispatch_block(self, act: List[int]) -> _Block:
-        """Schedule one decode step for the active slots — page bookkeeping
-        stays host-side; the device receives (B,) write slots, positions
-        and live masks plus the page table."""
-        B, page = self.B, self.page
-        wsl = np.full((B,), TRASH_PAGE * page, np.int64)
-        pos = np.full((B,), INVALID_POS, np.int32)
-        live = np.zeros((B,), bool)
-        gens: List[Optional[torch.Generator]] = [None] * B
-        fresh = []
+    def _dispatch_block(self, act: List[int]) -> Optional[_Block]:
+        """Build one D-step decode block for the active slots and dispatch
+        it: per slot, schedule up to D steps from its frontier
+        (``row.sched_t``, not the committed length, which lags while a
+        block is in flight), allocating the response pages those steps
+        write. Page bookkeeping stays host-side; the device receives (D,
+        B) write slots and valid masks, (B,) first positions, response
+        positions and seeds, the fresh pages and the page table."""
+        B, D, page = self.B, self.drain, self.page
+        wsl = np.full((D, B), TRASH_PAGE * page, np.int64)
+        valid = np.zeros((D, B), np.int64)
+        pos0 = np.full((B,), INVALID_POS, np.int64)
+        active = np.zeros((B,), np.int64)
+        t0s = np.zeros((B,), np.int64)
+        seeds = np.zeros((B,), np.int64)
+        fresh = np.full((self._n_fresh,), TRASH_PAGE, np.int64)
+        n_fresh = 0
         plan = []
         for s in act:
             row = self.sched.slot_req[s]
-            t = len(row.toks)
-            k = t // page
-            if k == len(row.pages):       # crossed a page boundary
-                fresh.append(self._alloc_resp_page(s, row, k))
-            wsl[s] = row.pages[k] * page + t % page
-            pos[s] = len(row.group.prompt) + t
-            live[s] = True
-            gens[s] = row.gen
-            plan.append((s, row))
-        if fresh:
-            self._invalidate_pages(fresh)
+            g = row.group
+            t0 = row.sched_t
+            if t0 >= g.max_new:      # fully scheduled; awaiting its drain
+                continue
+            n_row = min(D, g.max_new - t0)
+            for t in range(t0, t0 + n_row):
+                k = t // page
+                if k == len(row.pages):       # crossed a page boundary
+                    fresh[n_fresh] = self._alloc_resp_page(s, row, k)
+                    n_fresh += 1
+                wsl[t - t0, s] = row.pages[k] * page + t % page
+                valid[t - t0, s] = 1
+            pos0[s] = len(g.prompt) + t0
+            active[s] = 1
+            t0s[s] = t0
+            seeds[s] = row.seed
+            row.sched_t = t0 + n_row
+            plan.append((s, row, t0, n_row))
+        if not plan:
+            return None
         base = self.sched.step
-        self.sched.tick()
-        toks, lps, self.logits = self._decode_block(
-            self.params, self.caches, self.logits, gens,
-            self._to_device(live), self._to_device(wsl),
-            self._to_device(pos), self._to_device(self._ptab))
-        self.decode_steps += 1
-        return _Block(plan=plan, base=base, toks=toks, lps=lps)
+        self.sched.step += D
+        out, ready = self._run_step(self._decode_block, {
+            "ptab": self._ptab, "seeds": seeds, "fresh": fresh, "wsl": wsl,
+            "valid": valid, "pos0": pos0, "active": active, "t0": t0s})
+        self.decode_steps += D
+        return _Block(plan=plan, base=base, out=out, ready=ready)
 
     def _drain_block(self, blk: _Block) -> None:
-        """Commit one decode step into host bookkeeping — the ONLY
-        device->host read of the decode path, one frame below ``step``:
-        one (B,) token list (and logprob list) per step."""
-        toks = blk.toks.tolist()
-        lps = blk.lps.tolist() if blk.lps is not None else None
-        for s, row in blk.plan:
+        """Commit one decode block into host bookkeeping — the ONLY
+        device->host wait of the decode path, one frame below ``step``:
+        one (D, B) token list (and logprob list) per block. A row that
+        finished in an earlier block (its slot evicted or re-assigned)
+        ran these steps masked and is skipped."""
+        if blk.ready is not None:
+            blk.ready.synchronize()
+        toks = blk.out[0].tolist()
+        lps = blk.out[1].tolist() if self.capture_logprobs else None
+        for s, row, t0, n_row in blk.plan:
+            if self.sched.slot_req[s] is not row:
+                continue
             g = row.group
-            tv = toks[s]
-            row.toks.append(tv)
-            if lps is not None:
-                row.lps.append(lps[s])
-            self.generated_tokens += 1
-            if g.on_token is not None:
-                g.on_token(row.idx, tv)
-            if tv == self.eos_id or len(row.toks) >= g.max_new:
-                self._finish_row(s, row, blk.base + 1)
+            assert len(row.toks) == t0, "drain out of order"
+            for j in range(n_row):
+                tv = toks[j][s]
+                row.toks.append(tv)
+                if lps is not None:
+                    row.lps.append(lps[j][s])
+                self.generated_tokens += 1
+                if g.on_token is not None:
+                    g.on_token(row.idx, tv)
+                if tv == self.eos_id or len(row.toks) >= g.max_new:
+                    self._finish_row(s, row, blk.base + j + 1)
+                    break
 
     # -- spec plane ---------------------------------------------------------
 
@@ -789,9 +1005,11 @@ class PagedGroupEngine:
         positions = np.full((B, k + 1), INVALID_POS, np.int32)
         segs = np.full((B, k + 1), -1, np.int32)
         wslots = np.full((B, k + 1), TRASH_PAGE * page, np.int64)
-        fresh_m = np.zeros((B,), bool)
-        gens: List[Optional[torch.Generator]] = [None] * B
-        fresh_pages = []
+        fresh_m = np.zeros((B,), np.int64)
+        seeds = np.zeros((B,), np.int64)
+        rcs = np.zeros((B,), np.int64)
+        fresh = np.full((self._n_fresh,), TRASH_PAGE, np.int64)
+        n_fresh = 0
         for s in act:
             row = self.sched.slot_req[s]
             g = row.group
@@ -810,36 +1028,40 @@ class PagedGroupEngine:
                     segs[s, j] = -1
                     continue
                 while rp // page >= len(row.pages):
-                    fresh_pages.append(
-                        self._alloc_resp_page(s, row, len(row.pages)))
+                    fresh[n_fresh] = self._alloc_resp_page(s, row,
+                                                           len(row.pages))
+                    n_fresh += 1
                 wslots[s, j] = row.pages[rp // page] * page + rp % page
-            gens[s] = row.gen
             fresh_m[s] = row.fresh
-        if fresh_pages:
-            self._invalidate_pages(fresh_pages)
-        ctoks, clps, count = self._verify_step(
-            self.params, self.caches, self.logits, self._to_device(tokens),
-            self._to_device(positions), self._to_device(segs),
-            self._to_device(wslots), self._to_device(self._ptab), gens,
-            self._to_device(fresh_m), self._to_device(drafts))
-        self._commit_spec_rows(act, ctoks, clps, count)
+            seeds[s] = row.seed
+            rcs[s] = rc
+        out, ready = self._run_step(self._verify_step, {
+            "ptab": self._ptab, "seeds": seeds, "fresh": fresh,
+            "tokens": tokens, "positions": positions, "segs": segs,
+            "wslots": wslots, "fresh_rows": fresh_m, "draft": drafts,
+            "rc": rcs})
+        self._commit_spec_rows(act, out, ready)
         return True
 
-    def _drain_verify(self, ctoks, clps, count):
+    def _drain_verify(self, out, ready):
         """Read one verify block's commit buffers back — the ONLY
-        device->host read of the spec path, one frame below the hot
+        device->host wait of the spec path, one frame below the hot
         ``_spec_step``: one (B, k+1) token list (and logprob list) and the
         (B,) counts per step."""
-        return (ctoks.tolist(), clps.tolist() if clps is not None else None,
+        if ready is not None:
+            ready.synchronize()
+        ctoks, clps, count = out
+        return (ctoks.tolist(),
+                clps.tolist() if self.capture_logprobs else None,
                 count.tolist())
 
-    def _commit_spec_rows(self, act, ctoks, clps, count) -> None:
+    def _commit_spec_rows(self, act, out, ready) -> None:
         """Commit one verify block's rows on the host: cap each row at its
         budget and first EOS, stream and record the tokens, feed them to
         the draft, finish rows that stopped, and roll back speculative
         pages past every other row's fed frontier."""
         k = self.spec_k
-        ctoks, clps, count = self._drain_verify(ctoks, clps, count)
+        ctoks, clps, count = self._drain_verify(out, ready)
         step = self.sched.tick()
         self.decode_steps += 1
         for s in act:

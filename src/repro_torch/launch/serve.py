@@ -159,11 +159,13 @@ class RequestDriver:
 def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
                        num_slots: int = 4, page_size: int = 16,
                        temperature: float = 0.7, spec_k: int = 0,
-                       prefix_cache: bool = False, device="cuda"):
+                       prefix_cache: bool = False, drain_interval: int = 1,
+                       device="cuda"):
     """One serving-shaped paged engine (group_size=1, no logprob capture):
     enough pages for every slot to hold a full prompt + response, plus
     (with the prefix cache) one prompt's pages of headroom so a cached
-    prompt can stay resident."""
+    prompt can stay resident. ``drain_interval`` D > 1 decodes D steps a
+    block: a request's tokens then arrive in bursts of up to D."""
     if num_slots < 1 or page_size < 1:
         raise ValueError(f"serving needs num_slots >= 1 and "
                          f"page_size >= 1, got {num_slots}/{page_size}")
@@ -178,7 +180,7 @@ def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
                             temperature=temperature,
                             capture_logprobs=False,   # serving: no consumer
                             spec_k=spec_k, prefix_cache=prefix_cache,
-                            device=device)
+                            drain_interval=drain_interval, device=device)
 
 
 def serving_stats(eng, generated_tokens: int) -> dict:
@@ -204,7 +206,8 @@ def serving_stats(eng, generated_tokens: int) -> dict:
 def serve_paged(cfg, prompts, *, max_prompt_len: int, max_new: int,
                 num_slots: int = 4, page_size: int = 16,
                 temperature: float = 0.7, seed: int = 0, spec_k: int = 0,
-                prefix_cache: bool = False, device="cuda", params=None):
+                prefix_cache: bool = False, drain_interval: int = 1,
+                device="cuda", params=None):
     """Serve independent requests through the paged engine as one batch
     (each request its own 1-row group); returns (completions in completion
     order, stats)."""
@@ -212,7 +215,7 @@ def serve_paged(cfg, prompts, *, max_prompt_len: int, max_new: int,
                              max_new=max_new, num_slots=num_slots,
                              page_size=page_size, temperature=temperature,
                              spec_k=spec_k, prefix_cache=prefix_cache,
-                             device=device)
+                             drain_interval=drain_interval, device=device)
     if params is None:
         params = init(cfg, seed=seed, device=eng.device)
     t0 = time.time()

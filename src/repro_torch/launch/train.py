@@ -74,7 +74,8 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
             temperature=rl.temperature, top_p=rl.top_p,
             capture_logprobs=rl.capture_logprobs,
             spec_k=rl.spec_k if rl.spec_decode else 0,
-            prefix_cache=rl.prefix_cache, device=dev)
+            prefix_cache=rl.prefix_cache,
+            drain_interval=rl.decode_drain_interval, device=dev)
 
     instances = [InferenceInstance(i, cfg, scripted_fn=scripted_fn,
                                    paged_engine=paged_engine())
@@ -121,6 +122,10 @@ def main(argv=None) -> None:
                     help="radix prefix cache on the paged rollout engine: "
                          "prompts sharing a token prefix share its pages "
                          "and prefill only their suffix")
+    ap.add_argument("--drain-interval", type=int, default=1,
+                    help="fused decode-block length D: the paged engine "
+                         "runs D decode steps a block and drains their "
+                         "tokens once per block (1 = every step)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
@@ -139,7 +144,8 @@ def main(argv=None) -> None:
         max_response_len=args.max_response_len,
         shared_prompt_attention=args.spa,
         transfer_wire_dtype=args.wire_dtype, spec_decode=args.spec,
-        spec_k=args.spec_k, prefix_cache=args.prefix_cache, seed=args.seed)
+        spec_k=args.spec_k, prefix_cache=args.prefix_cache,
+        decode_drain_interval=args.drain_interval, seed=args.seed)
     sched, _ = build_pipeline(cfg, rl, seed=args.seed, device=args.device)
     t0 = time.time()
     history = sched.run(args.iterations)
@@ -147,7 +153,8 @@ def main(argv=None) -> None:
     total = sum(s.trained_tokens for s in history)
     print(f"{cfg.name} ({cfg.num_layers} layers, float32) on "
           f"{args.device} mode={args.mode} spa={args.spa} "
-          f"spec={args.spec} prefix_cache={args.prefix_cache}: "
+          f"spec={args.spec} prefix_cache={args.prefix_cache} "
+          f"drain_interval={args.drain_interval}: "
           f"{args.iterations} iterations, {total} tokens, {wall:.1f}s wall, "
           f"TPSPD={total / wall:.1f}")
     for s in history:

@@ -15,11 +15,12 @@ from the current policy (Proposition 1). Greedy decode (temperature <= 0)
 is "accept iff the draft is the argmax", token-identical to non-spec
 greedy decode.
 
-Randomness comes from each row's own ``torch.Generator`` (``rl/rollout.py
-row_generator``): every live row draws k+1 uniforms and k+1 Gumbel vectors
-per verify step, whatever it accepts, so a row's tokens depend only on its
-key, prompt and step, never on the slot it runs in (the two frameworks
-draw different numbers). Acceptance uses the filtered (temperature, top-p)
+Randomness is counter-based (``rl/rollout.py``): lane j of a row's verify
+step draws its accept uniform and its Gumbel vector from the streams keyed
+by (row seed, committed length rc, lane j), whatever it accepts, so a row's
+tokens depend only on its key, prompt and step, never on the slot it runs
+in (JAX keys the same draws by ``keys[rc]`` and the lane; the two
+frameworks draw different numbers). Acceptance uses the filtered (temperature, top-p)
 distribution; the returned logprobs are raw-distribution values, what
 ``capture_logprobs`` ships to the trainer.
 """
@@ -29,18 +30,20 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.rl.rollout import _filter_logits, gumbel
+from repro_torch.rl.rollout import (ACCEPT_LANE, RESAMPLE_LANE, _filter_logits,
+                                    gumbel_noise, uniforms)
 
 
 def verify_block(logits: torch.Tensor, draft: torch.Tensor,
-                 generators: List[Optional[torch.Generator]], *,
-                 temperature: float, top_p: float, capture: bool = True):
+                 seeds: Optional[torch.Tensor],
+                 counter: Optional[torch.Tensor], *, temperature: float,
+                 top_p: float, capture: bool = True):
     """Verify one k+1-token block for every row.
 
     logits: (B, k+1, V) raw target logits, logits[:, j] = p_j; draft: (B,
-    k) deterministic proposals; ``generators[b]``: row b's generator (None
-    for an empty slot, whose outputs the caller ignores; unused when
-    greedy).
+    k) deterministic proposals; ``seeds`` (B,) int64 row seeds and
+    ``counter`` (B,) int64 committed lengths key the draws (an empty
+    slot's outputs the caller ignores; both unused when greedy).
 
     Returns (accept (B, k) bool, alt (B, k+1) int32 — the leftover resample
     at j < k and the bonus draw at j = k, lp_draft (B, k) f32, lp_alt (B,
@@ -56,12 +59,10 @@ def verify_block(logits: torch.Tensor, draft: torch.Tensor,
         filt = _filter_logits(lg.reshape(B * K1, V), temperature,
                               top_p).reshape(B, K1, V)
         logp_f = torch.log_softmax(filt, dim=-1)
-        u = torch.zeros((B, K1), dtype=torch.float32, device=lg.device)
-        noise = torch.zeros_like(lg)
-        for b, gen in enumerate(generators):
-            if gen is not None:
-                u[b] = torch.rand(K1, generator=gen, device=lg.device)
-                noise[b] = gumbel(K1 * V, gen, lg.device).reshape(K1, V)
+        lanes = torch.arange(K1, dtype=torch.int64, device=lg.device)
+        s, c = seeds[:, None], counter[:, None]
+        u = uniforms(s, c, ACCEPT_LANE + lanes, 1)[..., 0]        # (B, k+1)
+        noise = gumbel_noise(s, c, RESAMPLE_LANE + lanes, V)       # (B, k+1, V)
         p_draft = torch.exp(torch.gather(logp_f[:, :k], -1,
                                          draft[..., None]))[..., 0]
         accept = u[:, :k] < p_draft

@@ -616,3 +616,102 @@ def test_reduced_mla_engine_on_card_matches_cpu(dev):
         assert toks == [c.response_ids.tolist() for c in cpu]
         out.append(sorted(map(tuple, toks)))
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------
+# the device-resident decode loop: CUDA-graph replays
+# ---------------------------------------------------------------------
+
+def _reduced_llama(dev):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import init
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    p_cpu = init(cfg, seed=0, device="cpu")
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    return cfg, p_cpu, to(p_cpu)
+
+
+def test_decode_block_graph_replay_matches_cpu_engine(dev):
+    """Greedy serving of reduced llama (f32) at D 3: the card replays one
+    captured graph per block and gives the CPU engine's tokens at D 3 and
+    its own tokens at D 1."""
+    from repro_torch.launch.serve import build_paged_engine
+    cfg, p_cpu, p_gpu = _reduced_llama(dev)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(3, 500, size=(n,)).astype(np.int32)
+               for n in (5, 19, 33, 7, 12)]
+    kw = dict(max_prompt_len=40, max_new=10, num_slots=2, page_size=8,
+              temperature=0.0)
+    toks = {}
+    for where, params, drain in ((dev, p_gpu, 3), ("cpu", p_cpu, 3),
+                                 (dev, p_gpu, 1)):
+        eng = build_paged_engine(cfg, device=where, drain_interval=drain,
+                                 **kw)
+        done = eng.serve(params, prompts, 1)
+        toks[str(where), drain] = {c.request_id: c.response_ids.tolist()
+                                   for c in done}
+        if where == dev:
+            assert eng._graph is not None
+            assert eng.graph_replays * drain == eng.decode_steps > 0
+    assert toks[str(dev), 3] == toks["cpu", 3] == toks[str(dev), 1]
+
+
+def test_launches_count_each_replay(dev):
+    """After k replays LAUNCHES holds k times the captured tally: the
+    layers' decode launches per block, D per layer."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine
+    cfg, _, p_gpu = _reduced_llama(dev)
+    D = 4
+    eng = build_paged_engine(cfg, max_prompt_len=24, max_new=12,
+                             num_slots=3, page_size=8, temperature=0.7,
+                             drain_interval=D, device=dev)
+    eng.set_params(p_gpu)
+    tally = eng._graph.tally
+    assert tally == {"paged_decode_attention": D * cfg.num_layers}
+    reset_launch_counts()
+    eng.serve(p_gpu, [np.arange(3, 3 + n, dtype=np.int32)
+                      for n in (4, 9, 17, 6)], 0)
+    torch.cuda.synchronize()
+    k = eng.graph_replays
+    assert k > 0 and LAUNCHES["paged_decode_attention"] == \
+        k * tally["paged_decode_attention"] == \
+        cfg.num_layers * eng.decode_steps
+    assert LAUNCHES["spa_attention"] == cfg.num_layers * eng.prefills
+
+
+def test_counter_uniforms_bitwise_equal_on_card_and_cpu(dev):
+    from repro_torch.rl.rollout import (RESAMPLE_LANE, row_seed,
+                                        uniform_words, uniforms)
+    rng = np.random.RandomState(4)
+    seeds = torch.from_numpy(np.concatenate([
+        [row_seed((0, 1), 0), -1, 2 ** 63 - 1],
+        rng.randint(-2 ** 63, 2 ** 63 - 1, size=5, dtype=np.int64)]))
+    counter = torch.arange(8, dtype=torch.int64) * 977
+    lanes = RESAMPLE_LANE + torch.arange(3)
+    for args in ((seeds, counter, 0, 128256),
+                 (seeds[:, None], counter[:, None], lanes, 4099)):
+        on_card = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                   for a in args]
+        assert torch.equal(uniform_words(*on_card).cpu(),
+                           uniform_words(*args))
+        assert torch.equal(uniforms(*on_card).cpu(), uniforms(*args))
+
+
+def test_a_capture_that_fails_raises(dev):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, and nothing falls back to eager execution."""
+    from repro_torch.core.graphs import StepGraph
+    x = torch.ones(16, device=dev)
+
+    def step():
+        if x.sum().item() > 0:          # a device->host read
+            return (x * 2,)
+        return (x,)
+    with pytest.raises(RuntimeError):
+        StepGraph(step, dev)
+    torch.cuda.synchronize()
+    assert float(x.sum()) == 16.0       # the card still works

@@ -174,7 +174,7 @@ def test_greedy_verify_block_bitwise_equal_to_jax(seed):
         jnp.asarray(lg), jnp.asarray(draft), jnp.zeros((B, 2), jnp.uint32),
         jnp.zeros((B,), jnp.int32), temperature=0.0, top_p=1.0)
     got = verify_block(torch.from_numpy(lg), torch.from_numpy(draft),
-                       [None] * B, temperature=0.0, top_p=1.0)
+                       None, None, temperature=0.0, top_p=1.0)
     for g, w in zip(got[:2], want[:2]):       # accept, alt: bitwise
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     for g, w in zip(got[2:], want[2:]):       # raw logprobs
@@ -340,7 +340,7 @@ def test_paged_spec_tight_pool_keeps_credits_symmetric(setup):
 from conftest import optional_hypothesis  # noqa: E402
 
 _hyp = optional_hypothesis()
-N_MC = 4096            # generators per example; TV error ~ sqrt(V / N)
+N_MC = 4096            # row seeds per example; TV error ~ sqrt(V / N)
 
 
 def _first_committed(lg, draft_tok, temperature, top_p, seed):
@@ -348,9 +348,9 @@ def _first_committed(lg, draft_tok, temperature, top_p, seed):
     logits = torch.tensor(lg, dtype=torch.float32)[None, None].expand(
         N_MC, 2, V).contiguous()
     draft = torch.full((N_MC, 1), draft_tok, dtype=torch.int32)
-    gens = [torch.Generator().manual_seed(seed * N_MC + i)
-            for i in range(N_MC)]
-    accept, alt, _, _ = verify_block(logits, draft, gens,
+    seeds = torch.arange(N_MC, dtype=torch.int64) + seed * N_MC
+    accept, alt, _, _ = verify_block(logits, draft, seeds,
+                                     torch.zeros(N_MC, dtype=torch.int64),
                                      temperature=temperature, top_p=top_p)
     return accept[:, 0].numpy(), alt[:, 0].numpy()
 
@@ -385,19 +385,27 @@ if _hyp is not None:
 
 
 def test_sampled_verify_draws_a_fixed_count_per_row():
-    """Every live row draws the same number of values per verify step,
-    whatever it accepts, so a row's stream position depends only on its
-    own step count."""
+    """A verify step's draws are a pure function of (row seed, committed
+    length rc, lane): every live row draws its k+1 accept uniforms and
+    k+1 Gumbel vectors from its own streams, whatever it accepts and
+    whichever rows share the batch. The same rows verified alone, in
+    another order, give the same outputs; another rc gives other draws."""
     lg, draft = _logits_and_drafts(5, B=3, k=3, V=32)
-    gens = [torch.Generator().manual_seed(i) for i in range(3)]
-    verify_block(torch.from_numpy(lg), torch.from_numpy(draft), gens,
-                 temperature=0.8, top_p=1.0)
-    states = [g.get_state() for g in gens]
-    fresh = [torch.Generator().manual_seed(i) for i in range(3)]
-    for f in fresh:
-        torch.rand(4, generator=f)
-        torch.rand(4 * 32, generator=f)
-    assert all(torch.equal(s, f.get_state()) for s, f in zip(states, fresh))
+    lg, draft = torch.from_numpy(lg), torch.from_numpy(draft)
+    seeds = torch.tensor([11, -7, 2 ** 40 + 3], dtype=torch.int64)
+    rc = torch.tensor([0, 5, 9], dtype=torch.int64)
+    kw = dict(temperature=0.8, top_p=1.0)
+    batch = verify_block(lg, draft, seeds, rc, **kw)
+    for b in (2, 0, 1):
+        alone = verify_block(lg[b:b + 1], draft[b:b + 1], seeds[b:b + 1],
+                             rc[b:b + 1], **kw)
+        for x, y in zip(batch, alone):
+            assert torch.equal(x[b], y[0])
+    # a uniform logit row: the accept uniforms decide, so rc must matter
+    flat = torch.zeros_like(lg)
+    runs = [verify_block(flat, draft, seeds, rc + d, **kw) for d in (0, 1)]
+    assert not (torch.equal(runs[0][0], runs[1][0])
+                and torch.equal(runs[0][1], runs[1][1]))
 
 
 def test_sampled_spec_tokens_do_not_depend_on_slot_count(setup):
