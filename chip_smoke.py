@@ -823,6 +823,9 @@ def serve_full_width(torch, np, dev, seed: int):
     kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
               temperature=0.7)
     eng = build_paged_engine(cfg, device=dev, **kw)
+    # hand the tree over and keep the engine's copy: the weights stay
+    # resident once (the engine clones what it is given, for its graph)
+    params = eng.set_params(params)
     # warm-up request (cuBLAS handles, allocator), then the measured run
     serve_requests(cfg, prompts[:1], params=params, engine=eng, seed=seed,
                    arrivals=np.zeros(1), **kw)
@@ -865,27 +868,9 @@ def serve_full_width(torch, np, dev, seed: int):
         "graph_replays": snap["graph_replays"], "graph": eng.capture_ms,
         "peak_pages": stats["peak_pages"], "launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "mem_gib": torch.cuda.memory_allocated(dev) / 2 ** 30,
         "first_tokens": [r.tokens[:8] for r in reqs[:2]],
     }
-
-
-class _ReplayEvents:
-    """Stands in for an engine's captured CUDA graph and records a pair of
-    CUDA events around each replay: the device time of the replays,
-    whether or not torch.profiler attributes the kernels inside a graph."""
-
-    def __init__(self, torch, graph):
-        self.torch, self.graph, self.pairs = torch, graph, []
-
-    def replay(self):
-        pair = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        pair[0].record()
-        self.graph.replay()
-        pair[1].record()
-        self.pairs.append(pair)
-
-    def ms(self) -> float:
-        return sum(a.elapsed_time(b) for a, b in self.pairs)
 
 
 def profile_decode(torch, np, eng, prompts, seed: int, steps: int = 8,
@@ -906,16 +891,15 @@ def profile_decode(torch, np, eng, prompts, seed: int, steps: int = 8,
     def window():
         """(host wall ms, decode steps, replay device ms) of ``calls``
         engine steps."""
-        timer = _ReplayEvents(torch, eng._graph.graph)
-        eng._graph.graph = timer
-        n0 = eng.decode_steps
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        eng._graph.graph = timer.graph
-        return wall, eng.decode_steps - n0, timer.ms()
+        with eng.time_replays() as pairs:
+            n0 = eng.decode_steps
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return (wall, eng.decode_steps - n0,
+                sum(a.elapsed_time(b) for a, b in pairs))
     handles = [eng.submit(p, (seed, 1000 + i), max_new=max_new)
                for i, p in enumerate(prompts[:eng.B])]
     eng.step()              # admission + prefills (+ the first block)
@@ -1308,6 +1292,8 @@ def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
     kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
               temperature=0.7, spec_k=spec_k)
     eng = build_paged_engine(cfg, device=dev, **kw)
+    # keep the engine's copy: phase 11 hands its own tree over (as phase 3)
+    params = eng.set_params(params)
     serve_requests(cfg, prompts[:1], params=params, engine=eng, seed=seed,
                    arrivals=np.zeros(1), **kw)        # warm-up request
     eng.reset_stats()
@@ -1347,6 +1333,7 @@ def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
         "launches": launches, "expected_launches": expect,
         "pages_conserved": _pages_conserved(eng),
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "mem_gib": torch.cuda.memory_allocated(dev) / 2 ** 30,
         "first_tokens": [r.tokens[:8] for r in reqs[:2]],
     }
     if spec_k:
@@ -1555,7 +1542,14 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
         "launch_formula": formula,
         "publishes": sched.transfer.publishes,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "mem_gib": torch.cuda.memory_allocated(dev) / 2 ** 30,
+        # the store holds the engine's copy, not the landed tree: the
+        # served weights are resident once
+        "store_holds_engine_tree": store.snapshot()[0] is
+        parts["pool"].instances[0].paged_engine.params,
     }
+    if not out["store_holds_engine_tree"]:
+        fail("train: the store holds a second copy of the served weights")
     if any(h.max_staleness != 0 or h.trained_tokens <= 0 for h in hist):
         fail(f"train: staleness or empty iteration: {out['iterations']}")
     if tri.version != iterations:
@@ -1686,8 +1680,7 @@ def device_loop_serve(torch, np, dev, cfg, params, prompts, seed: int,
                        **kw)                          # warm-up request
         engines[D] = eng
         setup[D] = {"first_set_params_ms": first_ms, **eng.capture_ms,
-                    "weight_copy_ms": copy_ms,
-                    "graph_launch_tally": eng._graph.tally}
+                    "weight_copy_ms": copy_ms}
     runs, tokens = [], []
     for rnd in range(LOOP_ROUNDS):
         for D in LOOP_DRAINS:

@@ -21,6 +21,7 @@ engine's drain does: it reads block n before it dispatches block n + 2).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Callable, Dict, Tuple
@@ -100,11 +101,30 @@ class StepGraph:
                                         pin_memory=True)
                             for o in self.outputs) for _ in range(2)]
         self._turn = 0
+        self._timed = None       # (start, end) event pairs while timing
+
+    @contextlib.contextmanager
+    def timing(self):
+        """While open, record a pair of CUDA timing events around each
+        replay; yields the list of (start, end) pairs."""
+        self._timed = pairs = []
+        try:
+            yield pairs
+        finally:
+            self._timed = None
 
     def replay(self) -> Tuple[Tuple[torch.Tensor, ...], torch.cuda.Event]:
         """Launch the graph on the current stream and queue the copies of
         its outputs to the host. Returns (host outputs, their event)."""
-        self.graph.replay()
+        if self._timed is None:
+            self.graph.replay()
+        else:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            self.graph.replay()
+            end.record()
+            self._timed.append((start, end))
         add_launches(self.tally)
         host = self._host[self._turn]
         self._turn ^= 1

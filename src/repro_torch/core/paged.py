@@ -306,7 +306,7 @@ class PagedGroupEngine:
                 f"max-length prompt ({self.n_prompt_pages} pages) + one "
                 f"response page + {FIRST_PAGE} reserved")
 
-        # engine-owned device state, built at the first set_params (later
+        # device state, built at the first set_params (on the card later
         # calls copy new weights in: the captured graph reads these
         # addresses)
         self.params = None
@@ -577,13 +577,21 @@ class PagedGroupEngine:
 
     # -- host API -----------------------------------------------------------
 
-    def set_params(self, params) -> None:
+    def set_params(self, params) -> dict:
         """Swap weights (iteration-boundary sync). Must be quiescent.
+        Returns the tree the engine decodes with.
 
-        The first call copies the weights into engine-owned tensors,
-        builds the page pool and, on the card, captures the step as a CUDA
-        graph (``capture_ms``); every later call copies the new weights
-        into the same tensors, so the graph stays valid.
+        On the CPU the engine holds ``params`` as they are. On the card the
+        step is a CUDA graph, which reads fixed addresses: the first call
+        clones the weights into engine-owned tensors, builds the page pool
+        and captures the graph (``capture_ms``); every later call copies
+        the new weights into the same tensors, which costs far less than a
+        recapture (PERF.md). The clone is not an alias of the caller's tree
+        because that tree may be one the caller goes on reading unchanged
+        (the trainer's policy, the reference model). A caller that hands
+        the weights over keeps the returned tree instead of its own, so the
+        card holds them once (the weight-plane's flip does; the serve entry
+        points drop theirs).
 
         The radix tree is dropped: its pages hold K/V written under the
         previous weights, and a warm admission under the new ones would
@@ -598,18 +606,23 @@ class PagedGroupEngine:
                 self.prefix_evicted_pages += self.alloc.release(
                     self.radix.pages())
                 self.radix = RadixCache(self.page, self.alloc)
-            if self.params is not None:
-                _tree_copy(self.params, params)
-                head = lm_head_weight(self.params["embed"], self.cfg)
-                if head.data_ptr() != self._w_head.data_ptr():
-                    self._w_head.copy_(head)     # its own f32 copy
-                return
-            self.params = _tree_clone(params)
+            if self._graph is not None:
+                if params is not self.params:
+                    _tree_copy(self.params, params)
+                    head = lm_head_weight(self.params["embed"], self.cfg)
+                    if head.data_ptr() != self._w_head.data_ptr():
+                        self._w_head.copy_(head)     # its own f32 copy
+                return self.params
+            first = self.params is None
+            self.params = (_tree_clone(params) if self.device.type == "cuda"
+                           else params)
             # f32 LM head, as the JAX engine computes next-token logits: a
             # view of f32 weights, an f32 copy of bf16 ones (1.5 GB at
             # llama3.2-3b width)
             self._w_head = lm_head_weight(self.params["embed"],
                                           self.cfg).float()
+            if not first:
+                return self.params
             self.caches = init_paged_caches(self.cfg, self.P, self.page,
                                             device=self.device)
             self.logits = torch.zeros((self.B, self.cfg.vocab_size),
@@ -627,15 +640,28 @@ class PagedGroupEngine:
                 self.warmup_steps += 1 if self.spec_k else self.drain
                 self.logits.zero_()
                 self.done.zero_()
+            return self.params
 
     @property
     def capture_ms(self) -> Optional[dict]:
-        """The graph's warm-up and capture host times (ms), or None."""
+        """The graph's warm-up and capture host times (ms) and the launch
+        tally each replay adds to ``kernels.LAUNCHES``, or None."""
         with self._mutex:
             if self._graph is None:
                 return None
             return {"warmup_ms": self._graph.warmup_ms,
-                    "capture_ms": self._graph.capture_ms}
+                    "capture_ms": self._graph.capture_ms,
+                    "launch_tally": dict(self._graph.tally)}
+
+    def time_replays(self):
+        """Context manager: while it is open, every replay of the engine's
+        graph records a pair of CUDA timing events around it; it yields
+        the list of (start, end) pairs. Card only."""
+        with self._mutex:
+            if self._graph is None:
+                raise RuntimeError("no captured graph: time_replays needs a "
+                                   "CUDA engine after its first set_params")
+            return self._graph.timing()
 
     def submit(self, prompt, key: Key, *, max_new: Optional[int] = None,
                on_token=None) -> GroupHandle:

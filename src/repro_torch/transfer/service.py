@@ -56,7 +56,9 @@ class VersionedParamStore:
                  defer_flip: bool = False):
         self.name = name
         # hook run under the flip lock with the NEW params (the paged
-        # engine's set_params, which refuses a swap while decoding)
+        # engine's set_params, which refuses a swap while decoding); it
+        # returns the tree the instance decodes with, which the store
+        # holds in place of the landed one (the weights stay resident once)
         self.on_flip = on_flip
         # True when background flips are unsafe (paged engines need
         # quiescence): the buffer stays staged and the boundary ``ensure``
@@ -166,7 +168,7 @@ class VersionedParamStore:
 
     def _publish_locked(self, params, version: int) -> int:
         if self.on_flip is not None:
-            self.on_flip(params)
+            params = self.on_flip(params)
         self._params = params
         self._version = version
         self._failed = None

@@ -654,9 +654,40 @@ def test_decode_block_graph_replay_matches_cpu_engine(dev):
         toks[str(where), drain] = {c.request_id: c.response_ids.tolist()
                                    for c in done}
         if where == dev:
-            assert eng._graph is not None
+            assert eng.capture_ms is not None
             assert eng.graph_replays * drain == eng.decode_steps > 0
     assert toks[str(dev), 3] == toks["cpu", 3] == toks[str(dev), 1]
+
+
+def test_engine_owns_its_weights_on_the_card(dev):
+    """The graph reads fixed addresses: the first set_params clones the
+    caller's tree, later ones copy into the same tensors (the caller's
+    tree is never written), and a store flip holds the engine's tree."""
+    from repro_torch.launch.serve import build_paged_engine
+    from repro_torch.transfer.service import VersionedParamStore
+    cfg, p_cpu, p_gpu = _reduced_llama(dev)
+    eng = build_paged_engine(cfg, max_prompt_len=24, max_new=8, num_slots=2,
+                             page_size=8, temperature=0.0, device=dev)
+    own = eng.set_params(p_gpu)
+    ptrs = [t.data_ptr() for t in _leaves(own)]
+    assert not set(ptrs) & {t.data_ptr() for t in _leaves(p_gpu)}
+    def doubled(tree):
+        return {k: doubled(v) if isinstance(v, dict) else v * 2
+                for k, v in tree.items()}
+    store = VersionedParamStore(on_flip=eng.set_params)
+    store.install(doubled(p_gpu), 1)
+    assert store.snapshot()[0] is own is eng.params
+    assert [t.data_ptr() for t in _leaves(own)] == ptrs
+    for mine, new, theirs, ref in zip(_leaves(own), _leaves(doubled(p_cpu)),
+                                      _leaves(p_gpu), _leaves(p_cpu)):
+        assert torch.equal(mine.cpu(), new)
+        assert torch.equal(theirs.cpu(), ref)
+
+
+def _leaves(tree):
+    for k in sorted(tree):
+        v = tree[k]
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def test_launches_count_each_replay(dev):
@@ -670,7 +701,7 @@ def test_launches_count_each_replay(dev):
                              num_slots=3, page_size=8, temperature=0.7,
                              drain_interval=D, device=dev)
     eng.set_params(p_gpu)
-    tally = eng._graph.tally
+    tally = eng.capture_ms["launch_tally"]
     assert tally == {"paged_decode_attention": D * cfg.num_layers}
     reset_launch_counts()
     eng.serve(p_gpu, [np.arange(3, 3 + n, dtype=np.int32)

@@ -389,6 +389,25 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+def test_weights_stay_resident_once(gqa):
+    """On the CPU the engine decodes with the caller's tree itself (no
+    graph needs fixed addresses), and a store whose flip hook is the
+    engine's ``set_params`` holds the tree the engine returns, not a
+    second one."""
+    from repro_torch.transfer.service import VersionedParamStore
+    cfg, params = gqa[1], gqa[3]
+    eng = PagedGroupEngine(cfg, device="cpu", **_kw(1))
+    assert eng.set_params(params) is params and eng.params is params
+    held = {"embed": torch.zeros(2)}
+    store = VersionedParamStore(on_flip=lambda p: held)
+    store.install({"embed": torch.ones(2)}, 0)
+    assert store.snapshot()[0] is held
+    store = VersionedParamStore(on_flip=eng.set_params)
+    other = {k: v for k, v in params.items()}
+    store.install(other, 1)
+    assert store.snapshot()[0] is other is eng.params
+
+
 def test_pipeline_sync_equals_async_at_drain_interval_4(gqa):
     """Proposition 1 with paged rollouts at D 4: sampled rollouts depend
     only on (key, prompt, step), so sync and async train on the same
