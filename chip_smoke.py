@@ -61,7 +61,14 @@ Phases, each printing one JSON line (every phase fails the run on error):
      bitwise equal to the bf16-rounded policy after every flip (and the
      last, staged version), and every kernel's launch count against the
      formula the run implies (printed). Prints each iteration's wall,
-     infer and train time, TPSPD, sync gap, and the peak device memory;
+     infer and train time, their overlap (infer + train - wall: the
+     rollout engine decodes on the paged engines' CUDA stream while the
+     trainer works on the default stream), TPSPD, sync gap and peak
+     device memory (from its boundary to the next), and for the last
+     iteration, under torch.profiler (``run_profiled``: CUDA activity
+     only, from its boundary to the end of the run), the device's busy
+     share (the union of the kernels' intervals over all streams against
+     the window's wall) and each stream's kernel time;
   7. train parity: reduced llama (2 layers, f32), one captured grad step
      and one Adam update on the same SPA-packed micro-batch with seeded
      non-constant advantages, on the card (kernels) against the CPU (plain
@@ -129,10 +136,12 @@ The profile phases also time each replay with CUDA events
      graph's warm-up and capture ms and a later set_params' weight copy;
      checks that every request's tokens are identical at D 1 and D 8 and
      across rounds, that launches equal L x decode steps made of replays,
-     and that every page returns; (c) phase 6's training run for 2
-     iterations at decode_drain_interval 8 (every check of phase 6), its
-     iteration wall, infer, train, TPSPD and sync gap beside phase 6's D 1
-     iterations.
+     and that every page returns; (c) phase 6's training run (3
+     iterations, unprofiled, every check of phase 6) at
+     decode_drain_interval 1 and 8 in interleaved rounds (D 1, D 8, three
+     each): each iteration's wall, infer, train, overlap, TPSPD, sync gap
+     and peak memory, and per D the median, least and most of each over
+     the iterations after the first (which holds the graph's capture).
 
 The SPA kernels run bf16 on the tensor cores (wgmma, with the
 probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
@@ -169,6 +178,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import bisect
 import gc
 import json
 import os
@@ -1445,8 +1455,102 @@ def _pool_is_bf16_policy(torch, pool_params, policy) -> bool:
                                _tree_leaves(policy)))
 
 
+def device_busy(torch, prof, window_ms: float) -> dict:
+    """Kernel time on each CUDA stream and the union of the kernels'
+    intervals over all streams, from a torch.profiler run (copies and
+    fills left out), against ``window_ms`` of host wall: the device's busy
+    share over the window. Each stream also names its three kernels of
+    most device time."""
+    spans, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.name().startswith(("Memcpy", "Memset")):
+            continue
+        sid = e.device_resource_id()
+        spans.setdefault(sid, []).append((e.start_ns(), e.end_ns()))
+        by = names.setdefault(sid, {})
+        by[e.name()[:60]] = by.get(e.name()[:60], 0) + e.end_ns() - \
+            e.start_ns()
+
+    def union_ns(iv):
+        total, end = 0, None
+        for a, b in sorted(iv):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total
+    busy = union_ns([iv for sp in spans.values() for iv in sp])
+    # the rollout engine's stream (the one running the paged decode
+    # kernel): its kernels alone on the card against those that ran while
+    # another stream's kernels did (kernel time per occurrence, the same
+    # mix of kernels in both as decode steps dominate)
+    engine = max(names, key=lambda sid: sum(
+        t for n, t in names[sid].items() if "splitl_kernel" in n))
+    others = sorted(iv for sid, sp in spans.items() if sid != engine
+                    for iv in sp)
+    merged = []
+    for a, b in others:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [a for a, _ in merged]
+    split = {"alone": [0, 0], "beside_other_streams": [0, 0]}
+    for a, b in spans[engine]:
+        # the last interval of the others that starts before b: the
+        # intervals are disjoint, so only it can reach past a
+        i = bisect.bisect_right(starts, b) - 1
+        beside = i >= 0 and merged[i][1] > a
+        cls = split["beside_other_streams" if beside else "alone"]
+        cls[0] += 1
+        cls[1] += b - a
+    streams = {str(sid): {
+        "kernels": len(sp), "kernel_ms": sum(b - a for a, b in sp) / 1e6,
+        "busy_ms": union_ns(sp) / 1e6,
+        "top": [[n, t / 1e6] for n, t in sorted(
+            names[sid].items(), key=lambda kv: -kv[1])[:3]]}
+        for sid, sp in spans.items()}
+    return {"window_ms": window_ms, "busy_ms": busy / 1e6,
+            "busy_share": busy / 1e6 / window_ms,
+            # kernel time that ran beside another stream's kernels
+            "overlap_ms": sum(v["busy_ms"] for v in streams.values())
+            - busy / 1e6, "streams": streams, "engine_stream": str(engine),
+            "engine_kernels": {k: {"kernels": n, "ms": t / 1e6,
+                                   "us_per_kernel": t / 1e3 / n if n
+                                   else None}
+                               for k, (n, t) in split.items()}}
+
+
+def run_profiled(torch, run, iterations: int):
+    """``iterations`` training iterations through ``run(n)`` (a scheduler's
+    ``run``, which returns the stats of the n it ran): n - 1, then the last
+    under torch.profiler (CUDA activity only), from its boundary (its
+    weight flip) to the card's end of it. Returns (the stats,
+    ``device_busy`` of that window, with the ms the profiler took to start
+    and to stop, which the window leaves out)."""
+    from torch.profiler import ProfilerActivity, profile
+    hist = run(iterations - 1)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    prof.start()
+    t1 = time.perf_counter()
+    hist += run(1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    prof.stop()
+    t3 = time.perf_counter()
+    return hist, {**device_busy(torch, prof, (t2 - t1) * 1e3),
+                  "profiler_start_ms": (t1 - t0) * 1e3,
+                  "profiler_stop_ms": (t3 - t2) * 1e3}
+
+
 def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
-                     drain: int = 1):
+                     drain: int = 1, profile: bool = False):
+    """Phase 6's run. ``profile``: its last iteration runs under
+    torch.profiler (``run_profiled``)."""
     from repro_torch.configs.base import RLConfig
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.train import build_pipeline
@@ -1459,6 +1563,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
                   transfer_wire_dtype="bfloat16", transfer_overlap=True,
                   decode_drain_interval=drain, seed=seed)
     torch.cuda.synchronize()
+    start_mem = torch.cuda.memory_allocated(dev) / 2 ** 30
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     # prompt_pad 96: prompts of about 120 tokens, under the 128 cap
@@ -1468,17 +1573,27 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
     setup_s = time.time() - t0
     store = parts["pool"].instances[0].store
     flips = []
+    # peak device memory per window: set-up, then each iteration from its
+    # boundary to the next one's (the last to the end of the run)
+    peaks = []
     ensure = sched.transfer.ensure
 
     def checked_ensure(params, version):
+        peaks.append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats(dev)
         v = ensure(params, version)
         flips.append([version, _pool_is_bf16_policy(
             torch, store.snapshot()[0], params)])
         return v
     sched.transfer.ensure = checked_ensure
     reset_launch_counts()
-    hist = sched.run(iterations)
+    busy = None
+    if profile:
+        hist, busy = run_profiled(torch, sched.run, iterations)
+    else:
+        hist = sched.run(iterations)
     torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     launches = dict(LAUNCHES)
     tri = parts["tri"]
     staged_ok = store.staged_version == iterations and _pool_is_bf16_policy(
@@ -1527,6 +1642,11 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
         "iterations": [{
             "iteration": h.iteration, "wall_s": h.wall_time,
             "infer_s": h.infer_time, "train_s": h.train_time,
+            # host time both sides were busy at once (either side's wait
+            # for the card included); device_busy says what the card did
+            "overlap_s": h.infer_time + h.train_time - h.wall_time,
+            "peak_mem_gib": peak, "profiled": busy is not None and
+            h.iteration == iterations - 1,
             "trained_tokens": h.trained_tokens, "tpspd": h.tpspd,
             "sync_gap_s": h.metrics["sync_gap"],
             "staleness": h.max_staleness, "reward_mean": h.reward_mean,
@@ -1534,14 +1654,16 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
             "decode_steps": h.metrics["decode_steps"],
             "graph_replays": h.metrics["graph_replays"],
             "generated_tokens": h.metrics["generated_tokens"]}
-            for h in hist],
+            for h, peak in zip(hist, peaks[1:])],
+        "device_busy_last_iteration": busy,
         "version": tri.version, "flips_bf16_bitwise": flips,
         "staged_bf16_bitwise": staged_ok,
         "captured_steps": cap, "recomputed_steps": rec,
         "launches": launches, "expected_launches": expect,
         "launch_formula": formula,
         "publishes": sched.transfer.publishes,
-        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        "start_mem_gib": start_mem,
+        "peak_mem_gib": max(peaks), "setup_peak_mem_gib": peaks[0],
         "mem_gib": torch.cuda.memory_allocated(dev) / 2 ** 30,
         # the store holds the engine's copy, not the landed tree: the
         # served weights are resident once
@@ -1550,6 +1672,8 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
     }
     if not out["store_holds_engine_tree"]:
         fail("train: the store holds a second copy of the served weights")
+    if busy is not None and not busy["busy_ms"] > 0:
+        fail("train: torch.profiler recorded no kernel in the last iteration")
     if any(h.max_staleness != 0 or h.trained_tokens <= 0 for h in hist):
         fail(f"train: staleness or empty iteration: {out['iterations']}")
     if tri.version != iterations:
@@ -1741,11 +1865,49 @@ def device_loop_serve(torch, np, dev, cfg, params, prompts, seed: int,
             "setup": setup, "median_by_d": summary, "runs": runs}
 
 
-def device_loop(torch, np, dev, seed: int, train_d1: dict):
+def device_loop_train(torch, np, dev, seed: int):
+    """Phase 14(c): phase 6's training run (3 iterations, unprofiled) at
+    D 1 and D 8 in interleaved rounds, every check of phase 6 in each.
+    Iteration 0 holds the graph's capture; the medians and spreads are
+    over the later iterations of every round."""
+    keys = ("wall_s", "infer_s", "train_s", "overlap_s", "tpspd",
+            "sync_gap_s", "peak_mem_gib", "staleness", "decode_steps",
+            "graph_replays")
+    runs = []
+    for rnd in range(LOOP_ROUNDS):
+        for D in LOOP_DRAINS:
+            r = train_full_width(torch, np, dev, seed, drain=D)
+            runs.append({"round": rnd, "drain_interval": D,
+                         "setup_s": r["setup_s"], "graph": r["graph"],
+                         "start_mem_gib": r["start_mem_gib"],
+                         "peak_mem_gib": r["peak_mem_gib"],
+                         "iterations": [{k: it[k] for k in keys}
+                                        for it in r["iterations"]]})
+            gc.collect()
+            torch.cuda.empty_cache()
+    summary = {}
+    for D in LOOP_DRAINS:
+        its = [it for run in runs if run["drain_interval"] == D
+               for it in run["iterations"][1:]]
+        summary[D] = {k: {"median": _median([it[k] for it in its]),
+                          "min": min(it[k] for it in its),
+                          "max": max(it[k] for it in its)}
+                      for k in ("wall_s", "infer_s", "train_s", "overlap_s",
+                                "tpspd", "peak_mem_gib")}
+    return {"phase": "device_loop_train", "arch": r["arch"],
+            "layers": r["layers"], "dtype": r["dtype"],
+            "slots": r["slots"], "N": r["N"], "G": r["G"],
+            "drain_intervals": list(LOOP_DRAINS), "rounds": LOOP_ROUNDS,
+            "summary_by_d": summary, "runs": runs,
+            "launches_last_run": r["launches"],
+            "launch_formula_last_run": r["launch_formula"]}
+
+
+def device_loop(torch, np, dev, seed: int):
     """Phase 14: (a) full-width llama3.2-3b on phase 3's workload and (b)
     full-width mla_dense on phase 11's, each at D 1 and D 8 in interleaved
-    rounds; (c) phase 6's training run for 2 iterations at D 8 beside
-    phase 6's D 1 iterations from the same call."""
+    rounds; (c) phase 6's training run at D 1 and D 8 in interleaved
+    rounds."""
     from repro_torch.configs import get_config
     from repro_torch.models import init
     out = []
@@ -1765,22 +1927,7 @@ def device_loop(torch, np, dev, seed: int, train_d1: dict):
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    d8 = train_full_width(torch, np, dev, seed, iterations=2,
-                          drain=LOOP_DRAINS[-1])
-    keys = ("wall_s", "infer_s", "train_s", "tpspd", "sync_gap_s",
-            "staleness", "decode_steps", "graph_replays")
-    out.append({
-        "phase": "device_loop_train", "arch": d8["arch"],
-        "layers": d8["layers"], "dtype": d8["dtype"],
-        "slots": d8["slots"], "N": d8["N"], "G": d8["G"],
-        "graph_d1": train_d1["graph"], "graph_d8": d8["graph"],
-        "iterations_d1": [{k: it[k] for k in keys}
-                          for it in train_d1["iterations"]],
-        "iterations_d8": [{k: it[k] for k in keys}
-                          for it in d8["iterations"]],
-        "launches_d8": d8["launches"],
-        "launch_formula_d8": d8["launch_formula"],
-        "peak_mem_gib_d8": d8["peak_mem_gib"]})
+    out.append(device_loop_train(torch, np, dev, seed))
     return out
 
 
@@ -1915,7 +2062,7 @@ def main() -> None:
     emit(reduced_parity(torch, np, dev, args.seed))
     gc.collect()
     torch.cuda.empty_cache()
-    train = train_full_width(torch, np, dev, args.seed)
+    train = train_full_width(torch, np, dev, args.seed, profile=True)
     emit(train)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1945,7 +2092,7 @@ def main() -> None:
     emit(mla_parity(torch, np, dev, args.seed))
     gc.collect()
     torch.cuda.empty_cache()
-    for line in device_loop(torch, np, dev, args.seed, train):
+    for line in device_loop(torch, np, dev, args.seed):
         emit({**line, "card": smi})
 
     # the training run's launches, each kernel timed at that run's shapes

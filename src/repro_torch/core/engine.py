@@ -22,9 +22,17 @@ Weights live in a :class:`~repro_torch.transfer.service.VersionedParamStore`
 per instance: readers take an atomic (params, version) snapshot, and the
 weight-plane streams versioned buckets into the store's back buffer.
 
-The producer threads and the trainer share one card and PyTorch's default
-stream: the device runs their work in the order it was issued, so producer
-and consumer do not overlap on the device in this slice.
+The producer threads and the trainer share one card on two streams: the
+paged engines issue their device work on the card's engine stream
+(``PagedGroupEngine.stream``, one a card), whichever worker thread steps
+them, while the trainer and the weight-plane stay on their threads'
+stream. So rollout kernels can run beside grad steps on the device, as
+the JAX package's threads overlap them (on one H100 this buys little:
+either side alone keeps the card busy, PERF.md); the hand-offs between
+the two (weights at a flip) are ordered by events
+(``PagedGroupEngine.set_params``), and rollouts reach the consumer as
+host arrays. ``busy_time`` is the wall time
+of the engine's steps, which wait only on the engine stream.
 """
 from __future__ import annotations
 

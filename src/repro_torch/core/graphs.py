@@ -5,9 +5,10 @@ the step with no per-op host work).
 A step function reads its host-built inputs from one static device buffer
 (``StaticInputs``: the caller uploads each call's arrays into it) and the
 engine's own state (weights, page pool, logits), and returns its outputs.
-``StepGraph`` warms it up once on a side stream, captures it, and at every
-``replay`` copies the outputs to page-locked host memory on the same
-stream and records an event the caller waits on before reading them.
+``StepGraph`` warms it up once on the current stream (the paged engine's
+own, a side stream), captures it, and at every ``replay`` copies the
+outputs to page-locked host memory on the same stream and records an
+event the caller waits on before reading them.
 
 Graphs exist only for CUDA tensors; on the CPU the caller runs the same
 step function eagerly (as a kernel wrapper picks its route by device). A
@@ -17,7 +18,9 @@ execution on the card.
 Both the upload and the output copies alternate between two host buffers,
 so a buffer is written again only two calls later. The caller must have
 waited in between on the event of the call that used it (the paged
-engine's drain does: it reads block n before it dispatches block n + 2).
+engine's drain does: it reads block n before it dispatches block n + 2),
+and the upload, the replay and that event must be issued on one stream
+(the paged engine's own, which its ``_run_step`` checks).
 """
 from __future__ import annotations
 
@@ -54,8 +57,8 @@ class StaticInputs:
         return self.buffer[off:off + size].view(shape)
 
     def upload(self, arrays: Dict[str, np.ndarray]) -> None:
-        """Copy every named array (all of them, each call) to the device,
-        without waiting for the device."""
+        """Copy every named array (all of them, each call) to the device
+        on the current stream, without waiting for the device."""
         if arrays.keys() != self.layout.keys():
             raise ValueError(f"upload needs exactly {sorted(self.layout)}, "
                              f"got {sorted(arrays)}")
@@ -79,11 +82,7 @@ class StepGraph:
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn()                 # lazy set-up: cuBLAS, kernel builds, plans
-        torch.cuda.current_stream(device).wait_stream(side)
+        fn()                     # lazy set-up: cuBLAS, kernel builds, plans
         torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
@@ -115,7 +114,9 @@ class StepGraph:
 
     def replay(self) -> Tuple[Tuple[torch.Tensor, ...], torch.cuda.Event]:
         """Launch the graph on the current stream and queue the copies of
-        its outputs to the host. Returns (host outputs, their event)."""
+        its outputs to the host there; the event and any timing events are
+        recorded on that stream too. Returns (host outputs, their
+        event)."""
         if self._timed is None:
             self.graph.replay()
         else:

@@ -38,11 +38,20 @@ one CUDA-graph replay (``core/graphs.py``), captured at the first
 is prefilled by ``forward_hidden`` over a dense temporary cache (the SPA
 kernel on CUDA) and spliced into its pages, eagerly (its length varies).
 
-The whole engine runs on one stream, the current one of the thread that
-steps it: a finished row's pages return to the freelist while a later
-block may still be in flight, which is safe because that block runs the
-row masked and the next admission's prefill runs after it in stream
-order.
+On the card the engine issues all its device work on the paged engines'
+CUDA stream (``stream``: one a card, shared by the engines on it,
+``engine_stream``), whichever thread calls it: ``step`` (admission,
+prefills, uploads, replays) and ``set_params`` enter it, so the rollout
+producer's kernels can run beside the trainer's, whose work stays on its
+threads' stream. A finished row's pages return to the freelist while a later block may still
+be in flight; that is safe because that block runs the row masked and the
+next admission's prefill, splice and invalidation run after it on the same
+stream (``_run_step`` raises if a step is issued on another). Hand-offs
+from other streams are ordered by events: ``set_params`` waits for the
+caller's stream before it reads the weights and makes the caller's stream
+wait for the copy; a caller's tree freed afterwards is kept from reuse
+until the copy has run (``record_stream``). Rollouts leave the engine as
+host arrays. On the CPU there is no stream (``stream`` is None).
 
 Two planes layer on the pool:
 
@@ -89,6 +98,9 @@ from repro_torch.spec import (PromptLookupDraft, commit_block, pack_row_block,
 NULL_PAGE = 0
 TRASH_PAGE = 1
 FIRST_PAGE = 2
+# the paged engines' CUDA stream on each card, made at first use
+_STREAMS: Dict[int, torch.cuda.Stream] = {}
+_STREAMS_LOCK = threading.Lock()
 
 
 class PageAllocator:
@@ -201,6 +213,26 @@ class _Block:
     ready: Optional[torch.cuda.Event]
 
 
+def engine_stream(device: torch.device) -> Optional[torch.cuda.Stream]:
+    """The CUDA stream every paged engine on ``device`` issues its work
+    on: one a card, shared by its engines (PyTorch keeps a cuBLAS
+    workspace per stream for the process's life, so a stream per engine
+    would grow memory with every engine built); None on the CPU."""
+    if device.type != "cuda":
+        return None
+    idx = torch.cuda.current_device() if device.index is None \
+        else device.index
+    with _STREAMS_LOCK:
+        if idx not in _STREAMS:
+            _STREAMS[idx] = torch.cuda.Stream(idx)
+        return _STREAMS[idx]
+
+
+def _tree_leaves(tree: dict):
+    for v in tree.values():
+        yield from (_tree_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def _tree_clone(tree: dict) -> dict:
     return {k: _tree_clone(v) if isinstance(v, dict) else v.clone()
             for k, v in tree.items()}
@@ -283,6 +315,9 @@ class PagedGroupEngine:
             require_engine_support(cfg, "prefix")
         self.cfg = cfg
         self.device = _device.resolve(device)
+        # every device op of the engine runs on this stream (the module
+        # docstring); None on the CPU
+        self.stream = engine_stream(self.device)
         self.B = num_slots
         self.page = page_size
         self.Lp = max_prompt_len
@@ -551,7 +586,15 @@ class PagedGroupEngine:
     def _run_step(self, fn, inputs: Dict[str, np.ndarray]):
         """Upload a step's inputs and run it: one graph replay on the card
         (outputs copied to the host, with their event), the step function
-        itself on the CPU. Returns (outputs, event or None)."""
+        itself on the CPU. Returns (outputs, event or None).
+
+        The upload, the replay and its event must share the engine's
+        stream: page reuse and the alternating host buffers are ordered by
+        it alone."""
+        if self.stream is not None and \
+                torch.cuda.current_stream(self.device) != self.stream:
+            raise RuntimeError("paged engine step issued off the engine's "
+                               "stream")
         self._inputs.upload(inputs)
         if self._graph is None:
             return fn(), None
@@ -596,7 +639,12 @@ class PagedGroupEngine:
         The radix tree is dropped: its pages hold K/V written under the
         previous weights, and a warm admission under the new ones would
         attend to them (the JAX engine keeps its tree across a swap; the
-        port departs from it here on purpose)."""
+        port departs from it here on purpose).
+
+        On the card the copy runs on the engine's stream, after the
+        caller's current stream (which must be the one that wrote
+        ``params``, or one ordered after it), and the caller's stream
+        waits for the copy before anything it issues next."""
         with self._mutex:
             if not self.sched.idle:
                 raise RuntimeError("weight sync while rollouts are in flight "
@@ -606,41 +654,61 @@ class PagedGroupEngine:
                 self.prefix_evicted_pages += self.alloc.release(
                     self.radix.pages())
                 self.radix = RadixCache(self.page, self.alloc)
-            if self._graph is not None:
-                if params is not self.params:
-                    _tree_copy(self.params, params)
-                    head = lm_head_weight(self.params["embed"], self.cfg)
-                    if head.data_ptr() != self._w_head.data_ptr():
-                        self._w_head.copy_(head)     # its own f32 copy
-                return self.params
-            first = self.params is None
-            self.params = (_tree_clone(params) if self.device.type == "cuda"
-                           else params)
-            # f32 LM head, as the JAX engine computes next-token logits: a
-            # view of f32 weights, an f32 copy of bf16 ones (1.5 GB at
-            # llama3.2-3b width)
-            self._w_head = lm_head_weight(self.params["embed"],
-                                          self.cfg).float()
-            if not first:
-                return self.params
-            self.caches = init_paged_caches(self.cfg, self.P, self.page,
-                                            device=self.device)
-            self.logits = torch.zeros((self.B, self.cfg.vocab_size),
-                                      dtype=torch.float32, device=self.device)
-            self.done = torch.zeros((self.B,), dtype=torch.bool,
-                                    device=self.device)
-            self._inputs = StaticInputs(self._input_shapes(), self.device)
-            if self.device.type == "cuda":
-                # the warm-up runs with every slot inactive (trash page,
-                # pos 2^30); logits and done flags start clean after it
-                self._inputs.upload(self._blank_inputs())
-                self._graph = StepGraph(
-                    self._verify_step if self.spec_k else self._decode_block,
-                    self.device)
-                self.warmup_steps += 1 if self.spec_k else self.drain
-                self.logits.zero_()
-                self.done.zero_()
+            if self.stream is None:
+                return self._load_params(params)
+            caller = torch.cuda.current_stream(self.device)
+            # params were written on the caller's stream (the trainer's,
+            # the weight-plane's unpack): the engine reads them after it
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                own = self._load_params(params)
+            # the caller may free params once this returns (the store drops
+            # a landed tree): no reuse of their memory before the copy ran
+            for leaf in _tree_leaves(params):
+                leaf.record_stream(self.stream)
+            # the caller reads the returned tree after the copy
+            caller.wait_stream(self.stream)
+            return own
+
+    def _load_params(self, params) -> dict:
+        """``set_params``' device work, on the engine's stream on the
+        card: the copy into the engine's tensors, or at the first call the
+        clone, the pool and the graph."""
+        if self._graph is not None:
+            if params is not self.params:
+                _tree_copy(self.params, params)
+                head = lm_head_weight(self.params["embed"], self.cfg)
+                if head.data_ptr() != self._w_head.data_ptr():
+                    self._w_head.copy_(head)     # its own f32 copy
             return self.params
+        first = self.params is None
+        self.params = (_tree_clone(params) if self.device.type == "cuda"
+                       else params)
+        # f32 LM head, as the JAX engine computes next-token logits: a
+        # view of f32 weights, an f32 copy of bf16 ones (1.5 GB at
+        # llama3.2-3b width)
+        self._w_head = lm_head_weight(self.params["embed"],
+                                      self.cfg).float()
+        if not first:
+            return self.params
+        self.caches = init_paged_caches(self.cfg, self.P, self.page,
+                                        device=self.device)
+        self.logits = torch.zeros((self.B, self.cfg.vocab_size),
+                                  dtype=torch.float32, device=self.device)
+        self.done = torch.zeros((self.B,), dtype=torch.bool,
+                                device=self.device)
+        self._inputs = StaticInputs(self._input_shapes(), self.device)
+        if self.device.type == "cuda":
+            # the warm-up runs with every slot inactive (trash page,
+            # pos 2^30); logits and done flags start clean after it
+            self._inputs.upload(self._blank_inputs())
+            self._graph = StepGraph(
+                self._verify_step if self.spec_k else self._decode_block,
+                self.device)
+            self.warmup_steps += 1 if self.spec_k else self.drain
+            self.logits.zero_()
+            self.done.zero_()
+        return self.params
 
     @property
     def capture_ms(self) -> Optional[dict]:
@@ -825,11 +893,13 @@ class PagedGroupEngine:
         tab = np.zeros((self.n_max,), np.int32)        # NULL padding
         tab[: len(g.prompt_pages)] = g.prompt_pages
         self._ptab[slot] = tab
-        # both land after any in-flight block in stream order: that block
-        # saw this slot masked (its previous row's done flag), the next
-        # one samples from the prompt logits with the flag clear
+        # both land after any in-flight block in the engine's stream
+        # order: that block saw this slot masked (its previous row's done
+        # flag), the next one samples from the prompt logits, flag clear.
+        # A fill, not ``done[slot] = False``: that copies a host scalar,
+        # which waits for the stream to drain (a host sync in ``step``)
         self.logits[slot] = g.prompt_logits
-        self.done[slot] = False
+        self.done[slot].fill_(False)
         row.toks = []
         row.lps = []
         row.fresh = True
@@ -883,7 +953,9 @@ class PagedGroupEngine:
         if self.capture_logprobs:
             g.done_lps[row.idx] = np.asarray(row.lps, np.float32)
         g.finish_step = step
-        # the row's response pages + its reference on the shared prompt pages
+        # the row's response pages + its reference on the shared prompt
+        # pages; a block in flight may still touch them, so whoever reuses
+        # them writes on the engine's stream, after that block
         self.alloc.release(row.pages + g.prompt_pages)
         row.pages = []
         self._outstanding -= row.credit
@@ -920,8 +992,11 @@ class PagedGroupEngine:
         row stopped inside the in-flight block; the device-resident
         ``done`` flags make that exact (a stopped row's extra steps run
         masked into the trash page), and the drain skips plan entries
-        whose slot was re-assigned."""
-        with self._mutex:
+        whose slot was re-assigned.
+
+        On the card everything runs on the engine's stream, whichever
+        thread calls (a no-op context on the CPU)."""
+        with self._mutex, torch.cuda.stream(self.stream):
             # admit one row at a time: _admit_row consumes pages, and the
             # gate must see the freelist as it actually is for the NEXT row
             while True:
@@ -1123,7 +1198,8 @@ class PagedGroupEngine:
               ) -> List[Completed]:
         """Serve independent requests (engine built with group_size=1;
         request i is its own group, keyed (seed, i)). Returns completions
-        in completion order."""
+        in completion order. Its device work is ``set_params``' and
+        ``step``'s, each on the engine's stream."""
         if self.G != 1:
             raise ValueError("serve() treats each request as a 1-row group; "
                              "build the engine with group_size=1")

@@ -16,6 +16,14 @@ Modes:
                           only: a paged engine needs quiescence at a flip).
 
 TPSPD (tokens trained per second per device) is the paper's primary metric.
+
+On the card the paged engines decode on their stream (one a card) and the
+trainer works on its thread's stream, so each side's busy time is its own:
+``infer_time`` waits only on the engine's stream and ``train_time`` only on
+the trainer's (``_settle``). The two sides run at once, so ``infer_time
++ train_time`` may exceed ``wall_time``: the difference is the host time
+both were busy, which holds either side's waits for the card (the device's
+own overlap needs a profile).
 The JAX package's trace spans and registry metrics (its obs plane) are not
 ported yet.
 """
@@ -79,8 +87,9 @@ def _pad_rows(mb: MicroBatch, m: int) -> MicroBatch:
 
 
 def _settle(device: torch.device) -> None:
-    """Wait until the device has run the work issued so far (trainer-side
-    busy-time measurement; nothing to wait for on the CPU)."""
+    """Wait until the device has run the work this thread issued so far:
+    its own stream only, not the paged engines' (trainer-side busy-time
+    measurement; nothing to wait for on the CPU)."""
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
 

@@ -24,10 +24,16 @@ in strict modes the scheduler's boundary ``ensure`` runs after the queue
 drain, so no request is in flight while a flip lands (the paged engine also
 refuses a weight swap while decoding).
 
-Every thread issues its work on the device's default stream, so a bucket's
-cast is ordered after the update that produced its leaves; the stream
-thread waits for each bucket's tensors (a stream synchronize) before
-delivering it, the port's ``jax.block_until_ready``.
+The trainer and the stream thread issue their work on the device's default
+stream, so a bucket's cast is ordered after the update that produced its
+leaves; the stream thread waits for each bucket's tensors (a stream
+synchronize) before delivering it, the port's ``jax.block_until_ready``.
+A paged engine decodes on the card's engine stream: its flip hook
+(``PagedGroupEngine.set_params``) orders its copy of a landed tree after
+the flipping thread's stream with an event, marks the landed leaves as used
+by its stream (``record_stream``) so the memory the store frees after the
+flip is not reused before the copy has run, and makes the flipping thread's
+stream wait for the copy.
 """
 from __future__ import annotations
 
@@ -43,7 +49,11 @@ from repro_torch.transfer.plan import (TransferPlan, build_plan,
 
 
 def _settle(tensors) -> None:
-    """Wait until the device has written ``tensors`` (CPU tensors: done)."""
+    """Wait until the device has written ``tensors`` (CPU tensors: done):
+    a host synchronize of the calling thread's current stream, the one
+    that wrote them. It orders nothing on other streams (the paged
+    engines' stream runs on); the engine's reads of the landed tree are ordered by
+    its own event wait at the flip."""
     devices = {t.device for t in tensors if t.device.type == "cuda"}
     for dev in devices:
         torch.cuda.current_stream(dev).synchronize()

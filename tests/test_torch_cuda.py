@@ -746,3 +746,268 @@ def test_a_capture_that_fails_raises(dev):
         StepGraph(step, dev)
     torch.cuda.synchronize()
     assert float(x.sum()) == 16.0       # the card still works
+
+
+# ---------------------------------------------------------------------
+# two streams: the paged engines' and the trainer's
+# ---------------------------------------------------------------------
+
+def _stress_default_stream(dev, stop):
+    """Until ``stop`` is set, keep about 30 ms of work queued on the
+    default stream: a spin, a long matmul, and tensors freed and allocated
+    again there (filled with NaN, so memory handed out too early shows in
+    the results). Engine work issued there by mistake lands that late,
+    after the engine's own stream has run on."""
+    import collections
+    a = torch.randn(4096, 4096, device=dev)
+    marks = collections.deque()
+    while not stop.is_set():
+        torch.cuda._sleep(10_000_000)          # about 5 ms of spinning
+        junk = [torch.full((1 << 20,), float("nan"), device=dev)
+                for _ in range(8)]
+        b = a @ a
+        del junk, b
+        marks.append(torch.cuda.Event())
+        marks[-1].record()
+        if len(marks) > 4:
+            marks.popleft().synchronize()
+    torch.cuda.current_stream(dev).synchronize()
+
+
+def _drive_threads(eng, prompts, max_news, workers: int = 2):
+    """Serve ``prompts`` through ``eng`` from ``workers`` threads that
+    step it convoy-style under one lock (as ``InferenceInstance`` does),
+    greedy. Returns {request: tokens}."""
+    import threading
+    lock = threading.Lock()
+    out, errors = {}, []
+
+    def worker(ids):
+        try:
+            hs = {i: eng.submit(prompts[i], (0, i), max_new=max_news[i])
+                  for i in ids}
+            for i, h in hs.items():
+                while not h.done():
+                    with lock:
+                        if not h.done():
+                            eng.step()
+                out[i] = h.host_rows()[0].tolist()
+        except BaseException as exc:
+            errors.append(exc)
+    threads = [threading.Thread(target=worker,
+                                args=(range(w, len(prompts), workers),))
+               for w in range(workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    while eng.step():            # a block still in flight at D > 1
+        pass
+    return out
+
+
+@pytest.mark.parametrize("drain", [1, 4])
+def test_engine_stream_under_default_stream_load(dev, drain):
+    """Rows finish mid-block and new rows take their freed pages (a tight
+    pool, LIFO freelist) while another thread keeps the default stream
+    busy and reallocates memory there: the tokens equal the same engine's
+    run alone, and every page comes back. Both engines decode on the
+    card's one engine stream."""
+    import threading
+    from repro_torch.core.paged import FIRST_PAGE, engine_stream
+    from repro_torch.launch.serve import build_paged_engine
+    cfg, _, p_gpu = _reduced_llama(dev)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(3, 500, size=(int(n),)).astype(np.int32)
+               for n in rng.randint(3, 40, size=10)]
+    max_news = [int(n) for n in rng.randint(3, 14, size=10)]
+
+    def engine():
+        eng = build_paged_engine(cfg, max_prompt_len=40, max_new=13,
+                                 num_slots=3, page_size=4, temperature=0.0,
+                                 drain_interval=drain, device=dev)
+        eng.set_params(p_gpu)
+        return eng
+    first = engine()
+    alone = _drive_threads(first, prompts, max_news)
+    eng = engine()
+    # one stream a card, shared by its paged engines
+    assert eng.stream is first.stream is engine_stream(dev)
+    assert eng.stream != torch.cuda.default_stream(dev)
+    stop = threading.Event()
+    stress = threading.Thread(target=_stress_default_stream,
+                              args=(dev, stop))
+    stress.start()
+    try:
+        loaded = _drive_threads(eng, prompts, max_news)
+    finally:
+        stop.set()
+        stress.join()
+    assert loaded == alone
+    assert all(len(alone[i]) <= max_news[i] for i in alone)
+    assert eng.alloc.num_live == 0 and \
+        eng.alloc.num_free == eng.P - FIRST_PAGE
+
+
+def test_engine_step_off_its_stream_raises(dev):
+    """An engine step issued on another stream than the engine's raises
+    before it uploads or replays anything."""
+    from repro_torch.launch.serve import build_paged_engine
+    cfg, _, p_gpu = _reduced_llama(dev)
+    eng = build_paged_engine(cfg, max_prompt_len=24, max_new=8, num_slots=2,
+                             page_size=8, temperature=0.0, device=dev)
+    eng.set_params(p_gpu)
+    n = eng.graph_replays
+    with pytest.raises(RuntimeError, match="off the engine's stream"):
+        eng._run_step(eng._decode_block, eng._blank_inputs())
+    assert eng.graph_replays == n
+
+
+def test_admission_does_not_wait_for_the_engine_stream(dev):
+    """With 0.4 s of work queued on the engine's stream, a step that admits
+    a row (prefill, page table, logits and done flag) and dispatches its
+    first block at D 4 returns without waiting for the card: no host sync
+    in ``step`` before the drain. The tokens match an unhindered run."""
+    import time
+    from repro_torch.launch.serve import build_paged_engine
+    cfg, _, p_gpu = _reduced_llama(dev)
+    prompt = np.arange(3, 20, dtype=np.int32)
+    out = []
+    for hold in (False, True):
+        eng = build_paged_engine(cfg, max_prompt_len=24, max_new=8,
+                                 num_slots=2, page_size=4, temperature=0.0,
+                                 drain_interval=4, device=dev)
+        eng.set_params(p_gpu)
+        h = eng.submit(prompt, 0)
+        torch.cuda.synchronize()
+        if hold:
+            with torch.cuda.stream(eng.stream):
+                torch.cuda._sleep(800_000_000)
+        t0 = time.perf_counter()
+        eng.step()
+        took = time.perf_counter() - t0
+        while eng.step():
+            pass
+        out.append(h.host_rows()[0].tolist())
+        if hold:
+            assert took < 0.2, took
+    assert out[0] == out[1]
+
+
+def _reduced_pipeline(dev, batch_prompts=2, **over):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.launch.train import build_pipeline
+    from repro_torch.models import init
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    kw = dict(mode="async", batch_prompts=batch_prompts, group_size=4,
+              num_inference_instances=1, max_prompt_len=24,
+              max_response_len=8, cbatch_slots=8,
+              shared_prompt_attention=True, capture_logprobs=True,
+              transfer_wire_dtype="bfloat16", seed=0)
+    kw.update(over)
+    rl = RLConfig(**kw)
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+    params = to(init(cfg, seed=0, device="cpu"))
+    sched, parts = build_pipeline(cfg, rl, seed=0, params=params,
+                                  device=dev)
+    return cfg, sched, parts
+
+
+def _parity_reward(resp, answer) -> float:
+    """A reward that varies with the tokens, so the updates are not zero
+    (a random model never answers right)."""
+    return float(np.mean(np.asarray(resp) % 2)) if len(resp) else 0.0
+
+
+def test_no_engine_kernel_runs_off_its_stream(dev):
+    """torch.profiler over a reduced two-iteration training run: every
+    decode kernel (paged decode, Split-L; the graph's warm-up and its
+    replays) and the prefills' SPA forwards run on one stream, the
+    trainer's SPA backwards and forwards on another."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    cfg, sched, parts = _reduced_pipeline(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hist = sched.run(2)
+        torch.cuda.synchronize()
+    assert all(s.max_staleness == 0 for s in hist)
+    count = collections.defaultdict(collections.Counter)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for kind in ("splitl_kernel", "spa_fwd", "bwd_tiles"):
+            if kind in e.name():
+                count[e.device_resource_id()][kind] += 1
+    L = cfg.num_layers
+    steps = sum(s.metrics["decode_steps"] for s in hist)
+    prefills = sum(s.metrics["prefills"] for s in hist)
+    warm = sum(s.metrics["warmup_steps"] for s in hist)
+    trainer = [s for s, c in count.items() if c["bwd_tiles"]]
+    assert len(trainer) == 1
+    engine = max(count, key=lambda s: count[s]["splitl_kernel"])
+    assert engine != trainer[0]
+    assert count[engine]["splitl_kernel"] == L * (steps + warm) > L * warm
+    assert count[engine]["spa_fwd"] == L * prefills > 0
+    assert count[trainer[0]]["spa_fwd"] == \
+        3 * L * sched.captured_micro_steps
+    assert sum(c["splitl_kernel"] for s, c in count.items()
+               if s != engine) == 0
+
+
+def test_async_training_on_card_matches_cpu(dev):
+    """A reduced async run, one group per iteration (a fixed accumulation
+    order), on the card (two streams, kernels) and on the CPU: the same
+    rollouts (trained tokens and rewards) and parameters within 2e-4 of
+    each leaf's largest entry, as the captured grad step's bar above."""
+    policies, stats = [], []
+    for where in (dev, "cpu"):
+        _, sched, parts = _reduced_pipeline(where, batch_prompts=1)
+        parts["generator"].reward_fn = _parity_reward
+        start = [t.cpu().clone() for t in _leaves(parts["tri"].policy)]
+        hist = sched.run(2)
+        assert all(s.max_staleness == 0 for s in hist)
+        stats.append([(s.trained_tokens, s.reward_mean) for s in hist])
+        policies.append([t.cpu() for t in _leaves(parts["tri"].policy)])
+        assert not all(torch.equal(a, b) for a, b in zip(start, policies[-1]))
+    assert stats[0] == stats[1]
+    for a, b in zip(*policies):
+        err = float((a - b).abs().max())
+        assert err <= 2e-4 * float(b.abs().max()), err
+
+
+def test_flipped_weights_survive_trainer_allocations(dev):
+    """At every flip the engine's stream is held busy (its copy of the
+    landed tree queues behind a long matmul), and right after the flip the
+    trainer's stream allocates and fills tensors of the landed leaves'
+    sizes (NaN). The pool's leaves stay bitwise the bf16-rounded policy:
+    the landed tree's memory is not reused before the copy has read it."""
+    _, sched, parts = _reduced_pipeline(dev, batch_prompts=1)
+    store = parts["pool"].instances[0].store
+    eng = parts["pool"].instances[0].paged_engine
+    ensure = sched.transfer.ensure
+    flips = []
+
+    def hooked(params, version):
+        if eng._graph is not None:
+            with torch.cuda.stream(eng.stream):
+                x = torch.randn(4096, 4096, device=dev)
+                for _ in range(8):
+                    x = x @ x * 1e-3
+        v = ensure(params, version)
+        junk = [torch.full_like(t, float("nan")) for t in _leaves(params)
+                for _ in range(2)]
+        del junk
+        pool = store.snapshot()[0]
+        flips.append(all(torch.equal(p, q.to(torch.bfloat16).float())
+                         for p, q in zip(_leaves(pool), _leaves(params))))
+        return v
+    sched.transfer.ensure = hooked
+    hist = sched.run(3)
+    assert all(s.max_staleness == 0 for s in hist)
+    assert flips == [True, True, True]
+    assert store.snapshot()[0] is eng.params

@@ -408,6 +408,26 @@ def test_weights_stay_resident_once(gqa):
     assert store.snapshot()[0] is other is eng.params
 
 
+def test_engine_has_no_stream_on_the_cpu(gqa):
+    """On the CPU there are no streams: the engine's stream is None, and
+    ``set_params`` holds and returns the caller's tree (on the card the
+    engines decode on the card's engine stream, tests/test_torch_cuda.py)."""
+    from repro_torch.core.paged import engine_stream
+    cfg, params = gqa[1], gqa[3]
+    eng = PagedGroupEngine(cfg, device="cpu", **_kw(1, drain_interval=4))
+    assert eng.stream is None and engine_stream(torch.device("cpu")) is None
+    assert eng.set_params(params) is params and eng.params is params
+    other = {k: v for k, v in params.items()}
+    assert eng.set_params(other) is other and eng.params is other
+
+
+def _parity_reward(resp, answer) -> float:
+    """A reward that varies with the tokens (a random model never answers
+    right, so the task's reward would leave every advantage at zero and
+    the parameters where they started)."""
+    return float(np.mean(np.asarray(resp) % 2)) if len(resp) else 0.0
+
+
 def test_pipeline_sync_equals_async_at_drain_interval_4(gqa):
     """Proposition 1 with paged rollouts at D 4: sampled rollouts depend
     only on (key, prompt, step), so sync and async train on the same
@@ -427,6 +447,33 @@ def test_pipeline_sync_equals_async_at_drain_interval_4(gqa):
         assert parts["pool"].instances[0].paged_engine.drain == 4
         assert all(s.metrics["decode_steps"] % 4 == 0 for s in hist)
         return parts["tri"].policy
+    for a, b in zip(_leaves(run("sync")), _leaves(run("async"))):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-4)
+
+
+def test_pipeline_sync_equals_async_at_drain_interval_8(gqa):
+    """The same bar at D 8, where a row's responses span two blocks, with
+    a reward that varies with the tokens, so the updates are not zero and
+    the parameters move."""
+    cfg = gqa[1]
+
+    def run(mode):
+        rl = RLConfig(mode=mode, batch_prompts=2, group_size=3, micro_batch=3,
+                      num_inference_instances=1, max_prompt_len=24,
+                      max_response_len=10, learning_rate=1e-3, seed=0,
+                      cbatch_slots=4, decode_drain_interval=8)
+        sched, parts = build_pipeline(cfg, rl, seed=0, device="cpu")
+        parts["generator"].reward_fn = _parity_reward
+        start = [t.clone() for t in _leaves(parts["tri"].policy)]
+        hist = sched.run(2)
+        assert all(s.max_staleness == 0 and s.trained_tokens > 0
+                   for s in hist)
+        assert any(s.reward_mean > 0 for s in hist)
+        assert all(s.metrics["decode_steps"] % 8 == 0 for s in hist)
+        policy = parts["tri"].policy
+        assert not all(torch.equal(a, b)
+                       for a, b in zip(start, _leaves(policy)))
+        return policy
     for a, b in zip(_leaves(run("sync")), _leaves(run("async"))):
         torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-4)
 
