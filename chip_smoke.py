@@ -73,7 +73,9 @@ Phases, each printing one JSON line (every phase fails the run on error):
      and one Adam update on the same SPA-packed micro-batch with seeded
      non-constant advantages, on the card (kernels) against the CPU (plain
      versions): gradients and updated parameters within 2e-4 of each
-     leaf's largest entry;
+     leaf's largest entry; then the same for reduced mla_dense (its
+     expanded attention trains in plain PyTorch, so no kernel of the port
+     launches: the check holds the card's PyTorch against the CPU's);
   8. spec_serve: the model of phase 3 serves the same 8 requests through
      RequestDriver with speculative decode (prompt lookup, k 4,
      temperature 0.7). Prints tok/s, TTFT/TPOT p50/p99, acceptance rate,
@@ -86,12 +88,17 @@ Phases, each printing one JSON line (every phase fails the run on error):
      prompt (32 pages) and 8 suffixes of 16 to 256 tokens, spec off, then
      on. Checks 7 x 32 prefix hit pages, SPA launches = 28 x cold
      prefills, verify launches = 28 x (warm prefills + verify forwards),
-     and that after the drain only the tree's pages stay live, one
-     reference each;
+     paged decode launches 28 x decode steps (0 with spec), every other
+     kernel 0, and that after the drain only the tree's pages stay live,
+     one reference each. Then the same 8 prompts arrive one every 0.25 s
+     (each prefilled alone, spec off) through RequestDriver, on an engine
+     with the radix cache and on one without: the TTFT p50/p99 of
+     requests 1-7, warm (suffix prefill) against cold;
  10. spec_parity: reduced llama (2 layers, f32), card against CPU: greedy
      spec tokens identical to the CPU's and to the card's own non-spec
      greedy tokens; warm radix tokens identical to cold; a warm suffix
-     prefill's last-token logits within 1e-3 of the cold prefill's;
+     prefill's last-token logits within 1e-3 of the cold prefill's on
+     the CPU (``radix_parity``);
  11. mla_serve: full-width deepseek-v2-lite attention with MoE off
      (``mla_dense``: 27 layers, d 2048, H 16, MLA r 512 / rd 64 / nd 128
      / vd 128, SwiGLU d_ff 1408 in every layer, random bf16 weights made
@@ -112,9 +119,14 @@ Phases, each printing one JSON line (every phase fails the run on error):
      acceptance rate and tokens per verify forward;
  13. mla_parity: reduced mla_dense (2 layers, f32), card against CPU,
      greedy: identical tokens with spec off and on and at D 3, spec and D 3
-     tokens identical to non-spec D 1 tokens, prefill logits within 1e-3.
+     tokens identical to non-spec D 1 tokens, prefill logits within 1e-3;
+     phase 10's radix checks on latent pages: warm tokens identical to
+     cold with spec off, spec on and at D 3, and the warm suffix prefill's
+     last-token logits (the MLA verify kernel over cached latent pages)
+     within 1e-3 of the CPU's cold prefill.
 
-Phases 8 and 9 run right after phase 4, on the same weights.
+Phases 8 and 9 run right after phase 4, on the same weights; phase 15
+right after phase 12, on phase 11's.
 
 From phase 3 on, every decode step (and every spec verify step) on the card
 is one replay of a CUDA graph the engine captured at its first
@@ -127,7 +139,7 @@ The profile phases also time each replay with CUDA events
 (``replay_device_ms_per_step``), beside torch.profiler's kernel sum.
 
  14. device_loop: the device-resident decode loop, D 1 against D 8 in
-     interleaved rounds (D 1, D 8, D 1, D 8, D 1, D 8): (a) full-width
+     interleaved rounds (D 1, D 8, D 1, D 8): (a) full-width
      llama3.2-3b on phase 3's workload and (b) full-width mla_dense on
      phase 11's (engines that hold 64 new tokens a row, so the profile
      windows of 16 decode steps keep 4 slots busy at D 8): TPOT and TTFT
@@ -138,10 +150,26 @@ The profile phases also time each replay with CUDA events
      across rounds, that launches equal L x decode steps made of replays,
      and that every page returns; (c) phase 6's training run (3
      iterations, unprofiled, every check of phase 6) at
-     decode_drain_interval 1 and 8 in interleaved rounds (D 1, D 8, three
+     decode_drain_interval 1 and 8 in interleaved rounds (D 1, D 8, two
      each): each iteration's wall, infer, train, overlap, TPSPD, sync gap
      and peak memory, and per D the median, least and most of each over
      the iterations after the first (which holds the graph's capture).
+ 15. mla_radix_serve: phase 9 on phase 11's model (full-width bf16
+     mla_dense, 27 layers): 7 x 32 hit pages from 1 cold and 7 warm
+     prefills; launches MLA verify = 27 x (warm prefills + verify
+     forwards), MLA decode = 27 x decode steps (0 with spec), SPA and the
+     GQA paged kernels 0 (the cold prefill is MLA's expanded attention in
+     plain PyTorch); only the tree's pages live after the drain, one
+     reference each; tok/s, warm against cold TTFT, peak memory and the
+     latent pool's bytes per token;
+ 16. mla_train: phase 6's run (its settings, checks and prints, the last
+     iteration profiled) on mla_dense at full depth (27 layers, 1.025 B
+     parameters) in f32: the rollouts launch the f32 MLA decode kernel
+     (27 x (decode steps + the graph's warm-up step)); MLA's prefill and
+     training attention is its expanded form in plain PyTorch, autograd
+     for the gradient (as the JAX package computes it), so the SPA kernels
+     launch 0 times, as do the GQA paged kernels; transfer_cast = leaves
+     x publishes.
 
 The SPA kernels run bf16 on the tensor cores (wgmma, with the
 probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
@@ -156,13 +184,17 @@ kernel (both of its wrappers) against its plain version at full-width
 heads (H 16, r 512, rd 64, MLA's scale 192^-0.5, page 16), bf16 and f32:
 decode at B 4 with contexts 64 to 1088 (phase 11's shape) and at B 16
 with contexts up to 8k, verify at B 4, S 5, contexts up to 1060 (phase
-12's), and a windowed verify; each case also prints the wrapper's plan
-(context splits, keys per split, blocks). Its library call is a page
-gather plus scaled_dot_product_attention with the boolean mask (Dv !=
-Dk); its bytes count each unique physical (page, slot) pair the call sees
-once.
+12's), a windowed verify, the training rollouts' decode (f32, B 8,
+contexts up to 192, phase 16's) and the radix suffix prefill (bf16, B 1,
+256 tokens after 512 cached, phase 15's longest); each case also prints
+the wrapper's plan (context splits, keys per split, blocks). Its library
+call is a page gather plus scaled_dot_product_attention with the boolean
+mask (Dv != Dk); its bytes count each unique physical (page, slot) pair
+the call sees once.
 
-Then one line {"kernels": [...]} with seven entries: the four kernels of
+Then one line {"phase": "elapsed"} with the seconds from the script's
+start to its end and to the last line of each phase, then one line
+{"kernels": [...]} with seven entries: the four kernels of
 the training path at the training run's shapes and launch counts (phase
 6; the two SPA entries also carry the bf16 1024-token prefill case, the
 serving shape, under "bf16_prefill"), paged_verify_attention at the spec
@@ -170,8 +202,10 @@ shape with phase 8's launches (and the 512-token suffix prefill, phase
 9's path, under "suffix_prefill"),
 and the MLA kernel's decode case with phase 11's launches and its verify
 case with phase 12's (bf16, with the plan's splits and blocks; the long
-decode, f32 and windowed cases of phase 2 beside them under their names);
-and last {"ok": true, "device": {...}}.
+decode, f32 and windowed cases of phase 2 beside them under their names,
+the decode entry's "training" case with phase 16's launches, in all and
+per iteration, and the verify entry's "suffix_prefill" case with phase
+15's spec-off launches); and last {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
 """
@@ -213,7 +247,19 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+STARTED = time.time()
+# [phase, seconds from the start to its last line] for each run of lines
+# of one phase, printed in the "elapsed" line
+PHASE_AT = []
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        at = time.time() - STARTED
+        if PHASE_AT and PHASE_AT[-1][0] == obj["phase"]:
+            PHASE_AT[-1][1] = at
+        else:
+            PHASE_AT.append([obj["phase"], at])
     print(json.dumps(obj), flush=True)
 
 
@@ -739,12 +785,14 @@ MLA_PROFILE_KERNELS = ("paged_mla_kernel", "combine_kernel")
 
 
 def mla_setup(torch, dev, gen, dtype, *, B, S, ctx_max, ctx_min=None,
-              page=16, window=None):
+              page=16, window=None, suffix=False):
     """The paged MLA kernel at full-width heads over a fragmented latent
     pool: S == 1 through paged_mla_decode_attention, S > 1 through
     paged_mla_verify_attention (row 0's last token then a masked slot at
     pos 2^30, as a fresh row's pad slot). Rows hold ctx_min (default
-    ctx_max / 8) to ctx_max tokens; the queries are each row's last S."""
+    ctx_max / 8) to ctx_max tokens; the queries are each row's last S.
+    ``suffix``: a radix suffix prefill, one row of ctx_max tokens whose
+    last S are the block, no masked slot."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
@@ -755,11 +803,12 @@ def mla_setup(torch, dev, gen, dtype, *, B, S, ctx_max, ctx_min=None,
     scale = (nd + rd) ** -0.5
     rng = np.random.RandomState(B * 1000 + S + 7)
     lo = max(S, ctx_max // 8) if ctx_min is None else ctx_min
-    lens = np.linspace(lo, ctx_max, B).astype(int)
+    lens = (np.asarray([ctx_max]) if suffix else
+            np.linspace(lo, ctx_max, B).astype(int))
     n_max = -(-ctx_max // page) + 1
     P, pos, table, used_pages = _fragmented_pool(np, rng, lens, page, n_max)
     q_pos = np.stack([np.arange(n - S, n) for n in lens]).astype(np.int32)
-    if S > 1:
+    if S > 1 and not suffix:
         q_pos[0, -1] = 2 ** 30
     dt = getattr(torch, dtype)
     q = torch.randn(B, S, H, r + rd, generator=gen, device=dev).to(dt)
@@ -802,7 +851,8 @@ def mla_setup(torch, dev, gen, dtype, *, B, S, ctx_max, ctx_min=None,
         "info": {"kernel": name, "dtype": dtype, "B": B, "S": S,
                  "ctx": [int(lens.min()), int(lens.max())], "n_max": n_max,
                  "page": page, "H": H, "r": r, "rd": rd, "scale": scale,
-                 "window": window, "visible_keys": keys,
+                 "window": window, "suffix_prefill": suffix,
+                 "visible_keys": keys,
                  "visible_pairs": pairs}}
 
 
@@ -956,17 +1006,18 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+def _to(tree, d):
+    return {k: _to(v, d) if isinstance(v, dict) else v.to(d)
+            for k, v in tree.items()}
+
+
 def reduced_parity(torch, np, dev, seed: int):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch.serve import serve_paged
     from repro_torch.models import forward, init
     cfg = reduced_config(get_config("llama3.2-3b"))
     p_cpu = init(cfg, seed=seed, device="cpu")
-
-    def to(tree, d):
-        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
-                for k, v in tree.items()}
-    p_gpu = to(p_cpu, dev)
+    p_gpu = _to(p_cpu, dev)
     rng = np.random.RandomState(seed + 1)
     prompts = [rng.randint(3, cfg.vocab_size, size=(int(n),)).astype(np.int32)
                for n in rng.randint(5, 48, size=4)]
@@ -1009,7 +1060,10 @@ SPEC_K = 4
 # phase 2's MLA cases at full-width heads (spa_ab.py --kernels mla times
 # the same): name -> mla_setup's dtype and keywords. Serving decode (B 4)
 # and the spec verify block (B 4, S 5) at phase 11's and 12's shapes, B 16
-# to 8k, in bf16 and f32; the verify block with a window.
+# to 8k, in bf16 and f32; the verify block with a window; the training
+# rollouts' decode (f32, B 8 to the training row's 192 keys, phase 16)
+# and the radix suffix prefill (bf16, B 1, 256 tokens after 512 cached,
+# phase 15's longest).
 MLA_CASES = {
     f"{case}_{dtype}": dict(dtype=dtype, **kw)
     for dtype in ("bfloat16", "float32")
@@ -1019,6 +1073,10 @@ MLA_CASES = {
         ("verify_spec", dict(B=4, S=SPEC_K + 1, ctx_max=1060)))}
 MLA_CASES["verify_window_bfloat16"] = dict(
     dtype="bfloat16", B=4, S=SPEC_K + 1, ctx_max=1060, window=256)
+MLA_CASES["decode_train_float32"] = dict(
+    dtype="float32", B=TRAIN_GROUP, S=1, ctx_max=TRAIN_PROMPT + TRAIN_RESP)
+MLA_CASES["verify_suffix_bfloat16"] = dict(
+    dtype="bfloat16", B=1, S=256, ctx_max=512 + 256, suffix=True)
 
 
 def _pages_conserved(eng) -> bool:
@@ -1087,19 +1145,59 @@ def spec_serve(torch, np, dev, params, prompts, seed: int):
     return eng, out
 
 
-def radix_serve(torch, np, dev, params, seed: int):
+# the engine's paged kernels by family: (S > 1 tokens a row, one token)
+PAGED_KERNELS = {False: ("paged_verify_attention", "paged_decode_attention"),
+                 True: ("paged_mla_verify_attention",
+                        "paged_mla_decode_attention")}
+TTFT_GAP_S = 0.25         # arrivals of the TTFT runs: one request at a time
+
+
+def radix_ttft(torch, np, dev, cfg, params, prompts, seed: int):
+    """TTFT of the shared-system requests arriving one every TTFT_GAP_S
+    (each prefilled alone, spec off) through RequestDriver, on an engine
+    with the radix cache and on one without: request 0 is cold on both,
+    requests 1..7 are warm (suffix prefill) on the first and cold on the
+    second."""
+    from repro_torch.launch.serve import build_paged_engine, serve_requests
+    full = max(len(p) for p in prompts)
+    kw = dict(max_prompt_len=full, max_new=32, num_slots=len(prompts),
+              page_size=16, temperature=0.7)
+    arrivals = np.arange(len(prompts)) * TTFT_GAP_S
+    out = {"gap_s": TTFT_GAP_S}
+    for name, prefix in (("cold", False), ("warm", True)):
+        eng = build_paged_engine(cfg, prefix_cache=prefix, device=dev, **kw)
+        eng.set_params(params)            # the graph's capture, outside
+        reqs, _, _ = serve_requests(cfg, prompts, params=params, engine=eng,
+                                    seed=seed, arrivals=arrivals,
+                                    prefix_cache=prefix, **kw)
+        torch.cuda.synchronize()
+        later = sorted(r.ttft for r in reqs if r.rid > 0)
+        out[name] = {"first_request_ttft_s": reqs[0].ttft,
+                     "ttft_p50_s": float(np.percentile(later, 50)),
+                     "ttft_p99_s": float(np.percentile(later, 99)),
+                     "warm_prefills": eng.warm_prefills,
+                     "cold_prefills": eng.prefills}
+        del eng
+    if out["warm"]["warm_prefills"] != len(prompts) - 1 or \
+            out["cold"]["cold_prefills"] != len(prompts):
+        fail(f"radix ttft: expected {len(prompts) - 1} warm prefills with "
+             f"the cache and none without: {out}")
+    return out
+
+
+def radix_serve(torch, np, dev, cfg, params, seed: int,
+                phase: str = "radix_serve"):
     """serve_shared over a 512-token system prompt and 8 suffixes, spec
-    off and then on."""
-    from repro_torch.configs import get_config
+    off and then on, and the warm against cold TTFT (``radix_ttft``)."""
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import build_paged_engine, serve_shared
-    cfg = get_config("llama3.2-3b")
     rng = np.random.RandomState(seed + 9)
     system = rng.randint(3, cfg.vocab_size, size=512).astype(np.int32)
     sfx_lens = np.linspace(16, 256, 8).astype(int)
     suffixes = [rng.randint(3, cfg.vocab_size, size=int(n)).astype(np.int32)
                 for n in sfx_lens]
     L = cfg.num_layers
+    verify, decode = PAGED_KERNELS[cfg.use_mla]
     runs = []
     for spec_k in (0, SPEC_K):
         torch.cuda.synchronize()
@@ -1123,12 +1221,14 @@ def radix_serve(torch, np, dev, params, seed: int):
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         snap = eng.stats_snapshot()
-        expect = {"spa_attention": L * snap["prefills"],
-                  "paged_verify_attention": L * (
-                      snap["warm_prefills"]
-                      + (snap["decode_steps"] if spec_k else 0)),
-                  "paged_decode_attention": (0 if spec_k
-                                             else L * snap["decode_steps"])}
+        # the cold prefill: the SPA kernel (GQA) or plain PyTorch (MLA's
+        # expanded attention); every other kernel of the run is the
+        # family's paged pair
+        expect = {name: 0 for name in launches}
+        expect["spa_attention"] = 0 if cfg.use_mla else L * snap["prefills"]
+        expect[verify] = L * (snap["warm_prefills"]
+                              + (snap["decode_steps"] if spec_k else 0))
+        expect[decode] = 0 if spec_k else L * snap["decode_steps"]
         run = {
             "spec_k": spec_k, "wall_s": wall,
             "generated_tokens": stats["generated_tokens"],
@@ -1152,72 +1252,66 @@ def radix_serve(torch, np, dev, params, seed: int):
         runs.append(run)
         if snap["prefix_hit_pages"] != 7 * 32 or snap["prefills"] != 1 or \
                 snap["warm_prefills"] != 7:
-            fail(f"radix_serve: expected 7 x 32 hit pages from 1 cold and 7 "
+            fail(f"{phase}: expected 7 x 32 hit pages from 1 cold and 7 "
                  f"warm prefills, got {run}")
-        if {k: launches[k] for k in expect} != expect:
-            fail(f"radix_serve: launches {launches} != {expect}")
+        if launches != expect:
+            fail(f"{phase}: launches {launches} != {expect}")
         if not run["pages_conserved"]:
-            fail(f"radix_serve: pages not conserved after the drain: {run}")
+            fail(f"{phase}: pages not conserved after the drain: {run}")
         for c in done:
-            if not 1 <= len(c.response_ids) <= 32:
-                fail(f"radix_serve: request {c.request_id}: "
-                     f"{len(c.response_ids)} tokens")
+            if not 1 <= len(c.response_ids) <= 32 or not all(
+                    0 <= t < cfg.vocab_size for t in c.response_ids):
+                fail(f"{phase}: request {c.request_id}: bad tokens "
+                     f"{c.response_ids}")
+        if not bool(torch.isfinite(eng.logits).all()):
+            fail(f"{phase}: non-finite logits after serving")
         del eng
-    return {"phase": "radix_serve", "arch": cfg.name, "layers": L,
-            "system_tokens": len(system), "system_pages": 32,
-            "suffix_lens": [int(n) for n in sfx_lens], "max_new": 32,
-            "page": 16, "temperature": 0.7, "runs": runs}
+    ttft = radix_ttft(torch, np, dev, cfg, params,
+                      [np.concatenate([system, sfx]) for sfx in suffixes],
+                      seed)
+    return {"phase": phase, "arch": cfg.name, "layers": L,
+            "dtype": cfg.param_dtype, "system_tokens": len(system),
+            "system_pages": 32, "suffix_lens": [int(n) for n in sfx_lens],
+            "max_new": 32, "page": 16, "temperature": 0.7,
+            "pool_bytes_per_token": _pool_bytes_per_token(cfg),
+            "runs": runs, "ttft": ttft}
 
 
-def spec_parity(torch, np, dev, seed: int):
-    """Reduced llama on the card against the CPU: greedy spec decode, warm
-    radix serving and the warm suffix prefill's logits."""
-    from repro_torch.configs import get_config, reduced_config
+def _tokens(done):
+    return {c.request_id: c.response_ids.tolist() for c in done}
+
+
+def radix_parity(torch, np, dev, cfg, p_cpu, p_gpu, rng, seed: int,
+                 variants=((0, 1),)):
+    """A reduced model's radix cache on the card: greedy warm tokens
+    (serve_shared: a 2-page system prompt and 3 suffixes) identical to
+    cold ones for each (spec k, D) of ``variants``, and a warm suffix
+    prefill's last-token logits within 1e-3 of a cold prefill's on the
+    CPU. Returns the checks' numbers."""
     from repro_torch.core.paged import PagedGroupEngine
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
-    from repro_torch.launch.serve import serve_paged, serve_shared
-    from repro_torch.models import init
-    cfg = reduced_config(get_config("llama3.2-3b"))
-    p_cpu = init(cfg, seed=seed, device="cpu")
-
-    def to(tree, d):
-        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
-                for k, v in tree.items()}
-    p_gpu = to(p_cpu, dev)
-    rng = np.random.RandomState(seed + 2)
-    # prompts that repeat themselves, so the prompt lookup drafts hit
-    prompts = []
-    for n in rng.randint(8, 40, size=4):
-        base = rng.randint(3, cfg.vocab_size, size=(int(n) // 2 + 1,))
-        prompts.append(np.concatenate([base, base])[:int(n)].astype(np.int32))
-    kw = dict(max_prompt_len=48, max_new=16, num_slots=2, page_size=16,
-              temperature=0.0, seed=seed)
-    reset_launch_counts()
-
-    def tokens(done):
-        return {c.request_id: c.response_ids.tolist() for c in done}
-    done_gpu, spec_stats = serve_paged(cfg, prompts, device=dev,
-                                       params=p_gpu, spec_k=SPEC_K, **kw)
-    spec_gpu = tokens(done_gpu)
-    spec_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
-                                  spec_k=SPEC_K, **kw)[0])
-    plain_gpu = tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
-                                   **kw)[0])
-    if not spec_gpu == spec_cpu == plain_gpu:
-        fail(f"spec greedy tokens differ: card {spec_gpu}, CPU {spec_cpu}, "
-             f"card non-spec {plain_gpu}")
+    from repro_torch.launch.serve import (build_paged_engine, serve_paged,
+                                          serve_shared)
     system = rng.randint(3, cfg.vocab_size, size=32).astype(np.int32)
     sufs = [rng.randint(3, cfg.vocab_size, size=int(n)).astype(np.int32)
             for n in (5, 17, 9)]
-    warm, wstats = serve_shared(cfg, system, sufs, max_prompt_len=64,
-                                max_new=16, page_size=16, temperature=0.0,
-                                seed=seed, params=p_gpu, device=dev)
-    cold, _ = serve_paged(cfg, [np.concatenate([system, s]) for s in sufs],
-                          device=dev, params=p_gpu,
-                          **dict(kw, max_prompt_len=64))
-    if tokens(warm) != tokens(cold) or wstats["prompt_pages_saved"] != 4:
-        fail(f"warm radix tokens {tokens(warm)} != cold {tokens(cold)} "
-             f"(pages saved {wstats['prompt_pages_saved']})")
+    kw = dict(max_new=16, page_size=16, temperature=0.0)
+    cold = _tokens(serve_paged(cfg, [np.concatenate([system, s])
+                                     for s in sufs], device=dev,
+                               params=p_gpu, max_prompt_len=64,
+                               num_slots=2, seed=seed, **kw)[0])
+    for spec_k, drain in variants:
+        eng = build_paged_engine(cfg, max_prompt_len=64,
+                                 num_slots=len(sufs), spec_k=spec_k,
+                                 prefix_cache=True, drain_interval=drain,
+                                 device=dev, **kw)
+        warm, wstats = serve_shared(cfg, system, sufs, max_prompt_len=64,
+                                    seed=seed, params=p_gpu, engine=eng,
+                                    **kw)
+        if _tokens(warm) != cold or wstats["prompt_pages_saved"] != 4:
+            fail(f"{cfg.name} warm radix tokens at spec k {spec_k}, D "
+                 f"{drain}: {_tokens(warm)} != cold {cold} (pages saved "
+                 f"{wstats['prompt_pages_saved']})")
+        del eng
     # the warm suffix prefill's last-token logits against a cold prefill
     ekw = dict(num_slots=2, page_size=16, num_pages=0, max_prompt_len=64,
                max_new_tokens=4, group_size=1, temperature=0.0,
@@ -1234,23 +1328,57 @@ def spec_parity(torch, np, dev, seed: int):
     ref.step()
     err = float((h._group.prompt_logits.cpu()
                  - h_ref._group.prompt_logits).abs().max())
-    launches = dict(LAUNCHES)
     while eng.step():
         pass
     while ref.step():
         pass
+    if err > 1e-3 or eng.warm_prefills != 1:
+        fail(f"{cfg.name} warm suffix prefill logits: max |err| {err} "
+             f"(tol 1e-3), {eng.warm_prefills} warm prefills")
+    return {"radix_warm_identical_cold": [list(v) for v in variants],
+            "warm_prefills": eng.warm_prefills,
+            "warm_prefill_logits_max_abs_err": err, "tol": 1e-3}
+
+
+def spec_parity(torch, np, dev, seed: int):
+    """Reduced llama on the card against the CPU: greedy spec decode, warm
+    radix serving and the warm suffix prefill's logits."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve_paged
+    from repro_torch.models import init
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    p_cpu = init(cfg, seed=seed, device="cpu")
+    p_gpu = _to(p_cpu, dev)
+    rng = np.random.RandomState(seed + 2)
+    # prompts that repeat themselves, so the prompt lookup drafts hit
+    prompts = []
+    for n in rng.randint(8, 40, size=4):
+        base = rng.randint(3, cfg.vocab_size, size=(int(n) // 2 + 1,))
+        prompts.append(np.concatenate([base, base])[:int(n)].astype(np.int32))
+    kw = dict(max_prompt_len=48, max_new=16, num_slots=2, page_size=16,
+              temperature=0.0, seed=seed)
+    reset_launch_counts()
+    done_gpu, spec_stats = serve_paged(cfg, prompts, device=dev,
+                                       params=p_gpu, spec_k=SPEC_K, **kw)
+    spec_gpu = _tokens(done_gpu)
+    spec_cpu = _tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+                                   spec_k=SPEC_K, **kw)[0])
+    plain_gpu = _tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
+                                    **kw)[0])
+    if not spec_gpu == spec_cpu == plain_gpu:
+        fail(f"spec greedy tokens differ: card {spec_gpu}, CPU {spec_cpu}, "
+             f"card non-spec {plain_gpu}")
+    radix = radix_parity(torch, np, dev, cfg, p_cpu, p_gpu, rng, seed)
+    launches = dict(LAUNCHES)
     out = {"phase": "spec_parity", "arch": cfg.name, "dtype": "float32",
            "spec_k": SPEC_K, "requests": len(prompts),
            "spec_tokens": sum(len(t) for t in spec_cpu.values()),
            "spec_acceptance_rate": spec_stats["acceptance_rate"],
            "spec_tokens_per_forward": spec_stats["tokens_per_forward"],
-           "spec_identical_cpu_and_nonspec": True,
-           "radix_warm_identical_cold": True,
-           "warm_prefills": eng.warm_prefills,
-           "warm_prefill_logits_max_abs_err": err, "tol": 1e-3,
+           "spec_identical_cpu_and_nonspec": True, **radix,
            "launches_card": launches}
-    if err > 1e-3 or eng.warm_prefills != 1 or \
-            launches["paged_verify_attention"] == 0:
+    if launches["paged_verify_attention"] == 0:
         fail(f"spec parity: {out}")
     return out
 
@@ -1266,6 +1394,19 @@ def mla_dense_config():
                                num_experts=0, num_experts_per_tok=0,
                                num_shared_experts=0, moe_d_ff=0,
                                first_k_dense=0, dense_d_ff=0)
+
+
+def mla_train_config():
+    """Phase 16's model: mla_dense at full depth (27 layers) in f32, the
+    trainer's master weights (1.025 B parameters, 4.1 GB a tree)."""
+    import dataclasses
+    return dataclasses.replace(mla_dense_config(), param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def reduced_mla_train_config():
+    from repro_torch.configs import reduced_config
+    return reduced_config(mla_train_config())
 
 
 def _pool_bytes_per_token(cfg) -> int:
@@ -1367,18 +1508,14 @@ def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
 
 def mla_parity(torch, np, dev, seed: int):
     """Reduced mla_dense on the card against the CPU, greedy, spec off
-    and on, and prefill logits."""
+    and on, prefill logits, and the radix cache on latent pages."""
     from repro_torch.configs import reduced_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import serve_paged
     from repro_torch.models import forward, init
     cfg = reduced_config(mla_dense_config())
     p_cpu = init(cfg, seed=seed, device="cpu")
-
-    def to(tree, d):
-        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
-                for k, v in tree.items()}
-    p_gpu = to(p_cpu, dev)
+    p_gpu = _to(p_cpu, dev)
     rng = np.random.RandomState(seed + 13)
     # prompts that repeat themselves, so the prompt lookup drafts hit
     prompts = []
@@ -1387,26 +1524,23 @@ def mla_parity(torch, np, dev, seed: int):
         prompts.append(np.concatenate([base, base])[:int(n)].astype(np.int32))
     kw = dict(max_prompt_len=48, max_new=16, num_slots=2, page_size=16,
               temperature=0.0, seed=seed)
-
-    def tokens(done):
-        return {c.request_id: c.response_ids.tolist() for c in done}
     reset_launch_counts()
-    plain_gpu = tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
+    plain_gpu = _tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
                                    **kw)[0])
-    plain_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+    plain_cpu = _tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
                                    **kw)[0])
     # D 3: the card's 3-step graph against the CPU engine at D 3
-    d3_gpu = tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
+    d3_gpu = _tokens(serve_paged(cfg, prompts, device=dev, params=p_gpu,
                                 drain_interval=3, **kw)[0])
-    d3_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+    d3_cpu = _tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
                                 drain_interval=3, **kw)[0])
     if not d3_gpu == d3_cpu == plain_gpu:
         fail(f"mla greedy tokens at D 3 differ: card {d3_gpu}, CPU "
              f"{d3_cpu}, card at D 1 {plain_gpu}")
     done_gpu, spec_stats = serve_paged(cfg, prompts, device=dev,
                                        params=p_gpu, spec_k=SPEC_K, **kw)
-    spec_gpu = tokens(done_gpu)
-    spec_cpu = tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+    spec_gpu = _tokens(done_gpu)
+    spec_cpu = _tokens(serve_paged(cfg, prompts, device="cpu", params=p_cpu,
                                   spec_k=SPEC_K, **kw)[0])
     launches = dict(LAUNCHES)
     if not plain_gpu == plain_cpu == spec_gpu == spec_cpu:
@@ -1416,6 +1550,13 @@ def mla_parity(torch, np, dev, seed: int):
     lg_cpu, _ = forward(p_cpu, cfg, toks)
     lg_gpu, _ = forward(p_gpu, cfg, toks.to(dev))
     err = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    # warm radix tokens == cold at spec off, spec on and D 3; the warm
+    # suffix prefill (the MLA verify kernel over cached latent pages)
+    n_verify = LAUNCHES["paged_mla_verify_attention"]
+    radix = radix_parity(torch, np, dev, cfg, p_cpu, p_gpu, rng, seed,
+                         variants=((0, 1), (SPEC_K, 1), (0, 3)))
+    radix["radix_verify_launches"] = \
+        LAUNCHES["paged_mla_verify_attention"] - n_verify
     out = {"phase": "mla_parity", "arch": cfg.name, "dtype": "float32",
            "r": cfg.kv_lora_rank, "rd": cfg.qk_rope_head_dim,
            "requests": len(prompts), "spec_k": SPEC_K,
@@ -1425,9 +1566,10 @@ def mla_parity(torch, np, dev, seed: int):
            "tokens_identical_card_cpu_spec_nonspec": True,
            "drain_intervals": [1, 3],
            "prefill_logits_max_abs_err": err, "tol": 1e-3,
-           "launches_card": launches}
+           "launches_card": launches, "radix": radix}
     if err > 1e-3 or launches["paged_mla_decode_attention"] == 0 or \
-            launches["paged_mla_verify_attention"] == 0:
+            launches["paged_mla_verify_attention"] == 0 or \
+            radix["radix_verify_launches"] == 0:
         fail(f"mla parity: {out}")
     return out
 
@@ -1455,12 +1597,18 @@ def _pool_is_bf16_policy(torch, pool_params, policy) -> bool:
                                _tree_leaves(policy)))
 
 
+# the paged decode kernels (GQA, MLA): the stream that runs them is the
+# rollout engine's
+ENGINE_KERNELS = ("splitl_kernel", "paged_mla_kernel")
+
+
 def device_busy(torch, prof, window_ms: float) -> dict:
     """Kernel time on each CUDA stream and the union of the kernels'
     intervals over all streams, from a torch.profiler run (copies and
     fills left out), against ``window_ms`` of host wall: the device's busy
     share over the window. Each stream also names its three kernels of
-    most device time."""
+    most device time. The rollout engine's stream is the one running the
+    paged decode kernels (``ENGINE_KERNELS``)."""
     spans, names = {}, {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA or \
@@ -1488,7 +1636,8 @@ def device_busy(torch, prof, window_ms: float) -> dict:
     # another stream's kernels did (kernel time per occurrence, the same
     # mix of kernels in both as decode steps dominate)
     engine = max(names, key=lambda sid: sum(
-        t for n, t in names[sid].items() if "splitl_kernel" in n))
+        t for n, t in names[sid].items()
+        if any(k in n for k in ENGINE_KERNELS)))
     others = sorted(iv for sid, sp in spans.items() if sid != engine
                     for iv in sp)
     merged = []
@@ -1548,13 +1697,15 @@ def run_profiled(torch, run, iterations: int):
 
 
 def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
-                     drain: int = 1, profile: bool = False):
-    """Phase 6's run. ``profile``: its last iteration runs under
-    torch.profiler (``run_profiled``)."""
+                     drain: int = 1, profile: bool = False, cfg=None,
+                     phase: str = "train"):
+    """Phase 6's run (phase 16's with ``cfg`` full-depth f32 mla_dense).
+    ``profile``: its last iteration runs under torch.profiler
+    (``run_profiled``)."""
     from repro_torch.configs.base import RLConfig
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.train import build_pipeline
-    cfg = train_config()
+    cfg = train_config() if cfg is None else cfg
     rl = RLConfig(mode="async", rollout_engine="paged",
                   num_inference_instances=1, cbatch_slots=8,
                   batch_prompts=4, group_size=TRAIN_GROUP,
@@ -1607,30 +1758,35 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
     cap, rec = sched.captured_micro_steps, sched.recomputed_micro_steps
     n_leaves = len(sched.transfer.plan.leaves)
     publishes = len(sched.transfer.publishes)
-    expect = {
-        # prefill: L; captured step: ref L + policy L + remat recompute L;
-        # recompute step: old L + ref L + policy L + recompute L
-        "spa_attention": L * (prefills + 3 * cap + 4 * rec),
-        "spa_attention_bwd": L * (cap + rec),
-        "paged_decode_attention": L * (steps + warm),
-        "paged_verify_attention": 0,           # spec and prefix are off
-        "paged_mla_decode_attention": 0,       # llama: no MLA
-        "paged_mla_verify_attention": 0,
-        "transfer_cast": n_leaves * publishes,
-    }
+    verify, decode = PAGED_KERNELS[cfg.use_mla]
+    other_verify, other_decode = PAGED_KERNELS[not cfg.use_mla]
+    no = "0 (no MLA)" if not cfg.use_mla else "0 (MLA: the latent kernel)"
     formula = {
-        "spa_attention": f"L*(prefills + 3*captured + 4*recomputed) = "
-                         f"{L}*({prefills} + 3*{cap} + 4*{rec})",
-        "spa_attention_bwd": f"L*(captured + recomputed) = {L}*({cap} + {rec})",
-        "paged_decode_attention": f"L*(decode_steps + warm-up steps) = "
-                                  f"{L}*({steps} + {warm})",
-        "paged_verify_attention": "0 (spec and prefix cache off)",
-        "paged_mla_decode_attention": "0 (no MLA)",
-        "paged_mla_verify_attention": "0 (no MLA)",
+        verify: "0 (spec and prefix cache off)",
+        decode: f"L*(decode_steps + warm-up steps) = {L}*({steps} + {warm})",
+        other_verify: no, other_decode: no,
         "transfer_cast": f"leaves*publishes = {n_leaves}*{publishes}",
     }
+    expect = {verify: 0, decode: L * (steps + warm), other_verify: 0,
+              other_decode: 0, "transfer_cast": n_leaves * publishes}
+    if cfg.use_mla:
+        # MLA's prefill and training attention is its expanded form in
+        # plain PyTorch (autograd for the gradient), as in the JAX package
+        for name in ("spa_attention", "spa_attention_bwd"):
+            expect[name] = 0
+            formula[name] = "0 (MLA: expanded attention in plain PyTorch)"
+    else:
+        # prefill: L; captured step: ref L + policy L + remat recompute L;
+        # recompute step: old L + ref L + policy L + recompute L
+        expect["spa_attention"] = L * (prefills + 3 * cap + 4 * rec)
+        expect["spa_attention_bwd"] = L * (cap + rec)
+        formula["spa_attention"] = (f"L*(prefills + 3*captured + "
+                                    f"4*recomputed) = {L}*({prefills} + "
+                                    f"3*{cap} + 4*{rec})")
+        formula["spa_attention_bwd"] = (f"L*(captured + recomputed) = "
+                                        f"{L}*({cap} + {rec})")
     out = {
-        "phase": "train", "arch": cfg.name, "layers": L,
+        "phase": phase, "arch": cfg.name, "layers": L,
         "d_model": cfg.d_model, "dtype": cfg.param_dtype,
         "params": sum(t.numel() for t in _tree_leaves(tri.policy)),
         "mode": rl.mode, "N": rl.batch_prompts, "G": rl.group_size,
@@ -1671,29 +1827,34 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
         parts["pool"].instances[0].paged_engine.params,
     }
     if not out["store_holds_engine_tree"]:
-        fail("train: the store holds a second copy of the served weights")
+        fail(f"{phase}: the store holds a second copy of the served "
+             f"weights")
     if busy is not None and not busy["busy_ms"] > 0:
-        fail("train: torch.profiler recorded no kernel in the last iteration")
+        fail(f"{phase}: torch.profiler recorded no kernel in the last "
+             f"iteration")
     if any(h.max_staleness != 0 or h.trained_tokens <= 0 for h in hist):
-        fail(f"train: staleness or empty iteration: {out['iterations']}")
+        fail(f"{phase}: staleness or empty iteration: {out['iterations']}")
     if tri.version != iterations:
-        fail(f"train: tri.version {tri.version} != {iterations}")
+        fail(f"{phase}: tri.version {tri.version} != {iterations}")
     if len(flips) != iterations or not all(ok for _, ok in flips) or \
             not staged_ok:
-        fail(f"train: pool leaves are not the bf16-rounded policy: {flips}, "
+        fail(f"{phase}: pool leaves are not the bf16-rounded policy: {flips}, "
              f"staged {staged_ok}")
     if launches != expect or 0 in (v for k, v in expect.items()
                                    if formula[k][0] != "0"):
-        fail(f"train: launches {launches} != expected {expect} ({formula})")
+        fail(f"{phase}: launches {launches} != expected {expect} ({formula})")
     if not all(bool(torch.isfinite(t).all())
                for t in _tree_leaves(tri.policy)):
-        fail("train: non-finite parameters after the updates")
+        fail(f"{phase}: non-finite parameters after the updates")
     return out
 
 
-def train_parity(torch, np, dev, seed: int):
-    """One captured grad step and one Adam update of reduced llama on the
-    card (kernels) against the CPU (plain versions)."""
+def train_parity(torch, np, dev, seed: int, cfg=None):
+    """One captured grad step and one Adam update of a reduced model
+    (llama unless ``cfg`` says otherwise) on the card against the CPU: for
+    llama the SPA kernels against their plain versions; for mla_dense its
+    expanded attention in plain PyTorch, which launches no kernel of the
+    port."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import RLConfig
     from repro_torch.core.queue import RolloutGroup
@@ -1703,7 +1864,7 @@ def train_parity(torch, np, dev, seed: int):
     from repro_torch.optim.adam import adam_init
     from repro_torch.rl.grpo import (make_apply_update,
                                      make_grad_step_captured, to_device)
-    cfg = reduced_config(get_config("llama3.2-3b"))
+    cfg = reduced_config(get_config("llama3.2-3b")) if cfg is None else cfg
     rl = RLConfig()                      # the paper's lr 1e-6, Adam, clip 1
     G, Lp, T = 8, 40, 48
     rng = np.random.RandomState(seed + 7)
@@ -1719,9 +1880,6 @@ def train_parity(torch, np, dev, seed: int):
     adv = rng.randn(G).astype(np.float32)        # non-constant advantages
     mb = pack_spa(group, adv, Lp, T, responses_per_row=G)
 
-    def to(tree, d):
-        return {k: to(v, d) if isinstance(v, dict) else v.to(d)
-                for k, v in tree.items()}
     policy = init(cfg, seed=seed, device="cpu")
     other = init(cfg, seed=seed + 1, device="cpu")
     ref = {k: v for k, v in policy.items()}
@@ -1731,11 +1889,11 @@ def train_parity(torch, np, dev, seed: int):
     results = []
     reset_launch_counts()
     for where in ("cpu", dev):
-        p, r = to(policy, where), to(ref, where)
+        p, r = _to(policy, where), _to(ref, where)
         grads, metrics = make_grad_step_captured(cfg, rl)(
             p, None, r, to_device(mb, where))
         new, _, _ = make_apply_update(cfg, rl)(p, adam_init(p), grads)
-        results.append((to(grads, "cpu"), to(new, "cpu"),
+        results.append((_to(grads, "cpu"), _to(new, "cpu"),
                         float(metrics["loss"])))
     launches = dict(LAUNCHES)
     (g_cpu, p_cpu, l_cpu), (g_gpu, p_gpu, l_gpu) = results
@@ -1751,8 +1909,9 @@ def train_parity(torch, np, dev, seed: int):
            "grad_max_err_rel_to_leaf_max": grad_err,
            "param_max_err_rel_to_leaf_max": param_err, "tol": 2e-4,
            "launches_card": launches}
+    want_bwd = 0 if cfg.use_mla else cfg.num_layers
     if not (grad_err <= 2e-4 and param_err <= 2e-4) or \
-            launches["spa_attention_bwd"] != cfg.num_layers:
+            launches["spa_attention_bwd"] != want_bwd:
         fail(f"train parity: card and CPU disagree: {out}")
     return out
 
@@ -1762,7 +1921,7 @@ def train_parity(torch, np, dev, seed: int):
 # ---------------------------------------------------------------------
 
 LOOP_DRAINS = (1, 8)
-LOOP_ROUNDS = 3
+LOOP_ROUNDS = 2
 
 
 def _median(xs):
@@ -1946,6 +2105,7 @@ def main() -> None:
         fail("src/repro_torch not found: run from a checkout of the "
              "repository")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2057,7 +2217,8 @@ def main() -> None:
     del spec_eng
     gc.collect()
     torch.cuda.empty_cache()
-    emit(radix_serve(torch, np, dev, params, args.seed))
+    emit(radix_serve(torch, np, dev, get_config("llama3.2-3b"), params,
+                     args.seed))
     del params
     emit(reduced_parity(torch, np, dev, args.seed))
     gc.collect()
@@ -2067,6 +2228,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     emit(train_parity(torch, np, dev, args.seed))
+    emit(train_parity(torch, np, dev, args.seed,
+                      cfg=reduced_mla_train_config()))
     emit(spec_parity(torch, np, dev, args.seed))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2086,6 +2249,12 @@ def main() -> None:
     _, _, _, mla_spec = mla_serve(torch, np, dev, args.seed, spec_k=SPEC_K,
                                   params=mla_params)
     emit(mla_spec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 15: phase 9's workload on the same weights
+    mla_radix = radix_serve(torch, np, dev, mla_dense_config(), mla_params,
+                            args.seed, phase="mla_radix_serve")
+    emit(mla_radix)
     del mla_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2094,6 +2263,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     for line in device_loop(torch, np, dev, args.seed):
         emit({**line, "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 16: phase 6's run on full-depth f32 mla_dense
+    mla_train = train_full_width(torch, np, dev, args.seed, profile=True,
+                                 cfg=mla_train_config(), phase="mla_train")
+    emit({**mla_train, "card": smi})
 
     # the training run's launches, each kernel timed at that run's shapes
     meta = {
@@ -2133,22 +2308,35 @@ def main() -> None:
     # splits and blocks; the long decode, f32 and windowed cases of phase
     # 2 beside them
     plan_keys = ("splits", "blocks")
+    # the training case with phase 16's launches (per iteration too), the
+    # suffix prefill case with phase 15's (spec off: its warm prefills)
+    trained = mla_train["launches"]["paged_mla_decode_attention"]
+    launched = {
+        "training": {"launches": trained, "launches_per_iteration":
+                     trained / len(mla_train["iterations"])},
+        "suffix_prefill": {"launches": mla_radix["runs"][0]["launches"][
+            "paged_mla_verify_attention"]}}
     for name, replaces, c, run, more in (
             ("paged_mla_decode_attention", 277, mla["decode_serve_bfloat16"],
              mla_srv, {"decode_long": mla["decode_long_bfloat16"],
                        "f32": mla["decode_serve_float32"],
-                       "decode_long_f32": mla["decode_long_float32"]}),
+                       "decode_long_f32": mla["decode_long_float32"],
+                       "training": mla["decode_train_float32"]}),
             ("paged_mla_verify_attention", 301, mla["verify_spec_bfloat16"],
              mla_spec, {"f32": mla["verify_spec_float32"],
-                        "window": mla["verify_window_bfloat16"]})):
+                        "window": mla["verify_window_bfloat16"],
+                        "suffix_prefill": mla["verify_suffix_bfloat16"]})):
         row.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_mla_attention.cu",
             "replaces": f"src/repro/kernels/decode_attention.py:{replaces}",
             "launches": run["launches"][name],
             **{key: c[key] for key in timing + plan_keys},
-            **{case: {key: m[key] for key in timing + plan_keys}
+            **{case: {**{key: m[key] for key in timing + plan_keys},
+                      **launched.get(case, {})}
                for case, m in more.items()}})
+    emit({"phase": "elapsed", "total_s": time.time() - STARTED,
+          "phases_end_at_s": PHASE_AT})
     emit({"kernels": row})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -27,8 +27,9 @@ heads):
   * mla: the paged MLA kernel at full-width mla_dense heads (H 16, r 512,
     rd 64), chip_smoke's MLA_CASES: decode at B 4 (contexts 64 to 1088)
     and B 16 (to 8192), the spec verify block (B 4, S 5), bf16 and f32,
-    and the windowed verify block (bf16); against a latent page gather
-    plus SDPA;
+    the windowed verify block (bf16), the training rollouts' decode (f32,
+    B 8) and the radix suffix prefill (bf16, B 1, S 256); against a
+    latent page gather plus SDPA;
   * cast: transfer_cast on every leaf of the training run's parameter
     tree (12-layer llama3.2-3b, f32 -> bf16), against x.to(torch.bfloat16);
     besides each leaf's lines, one line per version sums the medians over

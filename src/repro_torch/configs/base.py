@@ -2,9 +2,8 @@
 
 ``ModelConfig`` keeps the fields the ported paths read plus the capability
 fields the support matrix needs to reject what the port does not run yet
-(MoE, SSM/hybrid, enc-dec, VLM, sliding windows, MLA training and the radix
-cache on MLA). ``RLConfig`` keeps the fields the periodic-async GRPO
-pipeline reads.
+(MoE, SSM/hybrid, enc-dec, VLM, sliding windows). ``RLConfig`` keeps the
+fields the periodic-async GRPO pipeline reads.
 """
 from __future__ import annotations
 
@@ -86,10 +85,10 @@ _NOT_YET = "not ported to PyTorch yet (ROADMAP.md Queue 1)"
 
 def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
     """(supported, reason) for running ``cfg`` on ``engine`` in the port:
-    the paged engine serves the dense GQA family and MLA with MoE off; the
-    spec plane rides on it for both, the prefix plane and training (the
-    ``"train"`` plane, which ``build_pipeline`` asks) for GQA only; every
-    other family waits for later slices."""
+    the paged engine serves the dense GQA family and MLA with MoE off, and
+    the spec plane, the prefix plane and training (the ``"train"`` plane,
+    which ``build_pipeline`` asks) ride on it for both; every other family
+    waits for later slices."""
     if engine in _PLANES:
         ok, reason = engine_support(cfg, "paged")
         if not ok:
@@ -98,14 +97,12 @@ def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
             return True, ("a rejected draft's speculative pages roll back "
                           "to the freelist")
         if engine == PREFIX_PLANE:
-            if cfg.use_mla:
-                return False, ("radix cache on MLA latent pages: a later "
-                               "slice (ROADMAP.md Queue 1)")
-            return True, "cached prompt pages are shared across requests"
+            kind = "MLA latent" if cfg.use_mla else "K/V"
+            return True, (f"cached {kind} prompt pages are shared across "
+                          "requests")
         if cfg.use_mla:
-            return False, ("MLA training (the expanded attention's backward "
-                           "and the tri-model step): a later slice "
-                           "(ROADMAP.md Queue 1)")
+            return True, ("MLA's expanded attention trains through "
+                          "autograd, as the JAX package's does")
         return True, "the SPA kernel and its backward carry training"
     if engine not in ROLLOUT_ENGINES:
         raise KeyError(f"unknown engine {engine!r}; known: "

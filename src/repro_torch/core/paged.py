@@ -527,8 +527,9 @@ class PagedGroupEngine:
         private pages at its flat write slots while attending through the
         page table, which already lists the matched cached pages, so the
         suffix conditions on the shared prefix as a cold prefill would
-        (the S > 1 paged route: the paged-verify kernel on CUDA). Returns
-        the last real token's logits (V,) f32."""
+        (the S > 1 paged route: on CUDA the paged-verify kernel, or the
+        MLA kernel's verify wrapper over latent pages). Returns the last
+        real token's logits (V,) f32."""
         h, _ = forward_hidden(params, self.cfg, tokens, positions=positions,
                               segments=segs, caches=caches,
                               cache_offset=wslots, page_table=ptab)

@@ -15,9 +15,10 @@ MLA (DeepSeek-V2) caches one latent row per token, ``(ckv, kr)``, instead
 of per-head K/V. Against the paged pool it attends in the latent space
 (absorbed: w_uk folded into q, w_uv applied to the latent output) through
 the paged MLA wrappers, S == 1 through ``paged_mla_decode_attention`` and
-S > 1 (the spec verify block) through ``paged_mla_verify_attention``.
-Prefill expands per-head K/V from the latent and runs plain PyTorch
-attention, as the JAX package does (``_mla_expanded``).
+S > 1 (the spec verify block, the radix cache's suffix prefill) through
+``paged_mla_verify_attention``. Prefill and training expand per-head K/V
+from the latent and run plain PyTorch attention, as the JAX package does
+(``_mla_expanded``); training differentiates it with autograd.
 
 Caches are updated IN PLACE (the JAX backends return new arrays): the
 paged pool is the engine's largest allocation, and a copy per step would
@@ -228,8 +229,9 @@ def _paged_mla_decode(params, cfg: ModelConfig, q_nope, q_rope, ckv, kr,
     """Absorbed MLA attention of S tokens per row against the paged latent
     pool: write their (ckv, kr) rows in place, then attend in the (rank +
     rope) latent space, every token masked by its own position. S == 1 is
-    a decode step, S > 1 the spec verify block. Returns (o_lat (B, S, H,
-    r), cache)."""
+    a decode step, S > 1 the spec verify block or a radix suffix prefill
+    (its pad slots write to the trash page at pos 0 and their outputs are
+    dropped). Returns (o_lat (B, S, H, r), cache)."""
     PagedCacheBackend(cfg, cache["pos_pages"].shape[1]).write_decode(
         cache, (ckv, kr), positions, cache_offset)
     q_cat = _absorbed_q(params, cfg, q_nope, q_rope)          # (B,S,H,r+rd)
@@ -272,9 +274,11 @@ def mla_attention(params, cfg: ModelConfig, x, positions, segments, *,
                   page_table=None):
     """x: (B, S, d). Against the paged latent pool (``cache`` one, with
     flat write slots and a page table): the absorbed path through the
-    paged MLA kernels, so the pool stores only ckv + kr per token (the
-    MLA memory win). Otherwise (no cache, or a dense cache filled from
-    offset 0): the expanded prefill.
+    paged MLA kernels for S tokens per row (a decode step, the spec verify
+    block, a radix suffix prefill attending through cached latent pages),
+    so the pool stores only ckv + kr per token (the MLA memory win).
+    Otherwise (no cache, or a dense cache filled from offset 0): the
+    expanded path of prefill and training.
 
     The softmax scale is (nd + rd)^-0.5 and is passed to the kernels
     explicitly: their default, D^-0.5 with D = r + rd, is not MLA's.

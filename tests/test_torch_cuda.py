@@ -46,6 +46,20 @@ def _f32(*ts):
     return tuple(t.float() if t.is_floating_point() else t for t in ts)
 
 
+def _reduced_mla_dense():
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    return reduced_config(dataclasses.replace(
+        get_config("deepseek-v2-lite-16b"), num_experts=0,
+        num_experts_per_tok=0, num_shared_experts=0, moe_d_ff=0,
+        first_k_dense=0, dense_d_ff=0))
+
+
+def _to_dev(tree, dev):
+    return {k: _to_dev(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
 def _packed(dev, dtype, seed, Lp, Lr, K, H, Hkv, D):
     S = Lp + K * Lr
     pos = np.zeros((1, S), np.int32)
@@ -564,6 +578,37 @@ def test_paged_mla_kernel_matches_plain(dev, dtype, B, S, H, r, rd, page,
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_mla_verify_kernel_at_suffix_prefill_shape(dev, dtype):
+    """The radix suffix prefill at full width: one row of 512 cached
+    tokens then a 256-token block of which the first 200 are the suffix
+    (pos 512..711, their latents written) and the rest pad slots at pos 0,
+    as the engine pads a suffix to its power-of-two page bucket. The
+    wrapper's plan has 256 row groups."""
+    from repro_torch.kernels.decode_attention import LAST_PLAN
+    H, r, rd, page, S, real = 16, 512, 64, 16, 256, 200
+    rng = np.random.RandomState(5)
+    P, pos, table, _ = _verify_pool(rng, 1, S, page, (512 + real,),
+                                    n_extra=3, masked=False)
+    q_pos = np.zeros((1, S), np.int32)
+    q_pos[0, :real] = np.arange(512, 512 + real)
+    dt = getattr(torch, dtype)
+
+    def t(a, float_=False):
+        x = torch.from_numpy(np.asarray(a)).to(dev)
+        return x.to(dt) if float_ else x
+    args = (t(rng.randn(1, S, H, r + rd).astype(np.float32), True),
+            t(rng.randn(P, page, r).astype(np.float32), True),
+            t(rng.randn(P, page, rd).astype(np.float32), True),
+            t(pos), t(table), t(q_pos))
+    scale = (128 + rd) ** -0.5
+    got = _launch_twice("paged_mla_verify_attention",
+                        paged_mla_verify_attention, *args, scale=scale)
+    assert LAST_PLAN["paged_mla_verify_attention"]["row_groups"] == S
+    want = paged_mla_verify_attention_plain(*_f32(*args), scale=scale)
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
 def test_paged_mla_kernel_refuses_unbuilt_shapes(dev):
     q = torch.zeros((2, 1, 4, 72), device=dev)
     ckv = torch.zeros((3, 4, 56), device=dev)
@@ -584,14 +629,9 @@ def test_reduced_mla_engine_on_card_matches_cpu(dev):
     """Greedy serving of reduced mla_dense (f32), spec off and on:
     identical tokens on the card (the MLA kernel) and on the CPU (plain
     versions)."""
-    import dataclasses
-    from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch.serve import serve_paged
     from repro_torch.models import init
-    cfg = reduced_config(dataclasses.replace(
-        get_config("deepseek-v2-lite-16b"), num_experts=0,
-        num_experts_per_tok=0, num_shared_experts=0, moe_d_ff=0,
-        first_k_dense=0, dense_d_ff=0))
+    cfg = _reduced_mla_dense()
     p_cpu = init(cfg, seed=0, device="cpu")
 
     def to(tree):
@@ -896,12 +936,13 @@ def test_admission_does_not_wait_for_the_engine_stream(dev):
     assert out[0] == out[1]
 
 
-def _reduced_pipeline(dev, batch_prompts=2, **over):
+def _reduced_pipeline(dev, batch_prompts=2, arch="llama", **over):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import RLConfig
     from repro_torch.launch.train import build_pipeline
     from repro_torch.models import init
-    cfg = reduced_config(get_config("llama3.2-3b"))
+    cfg = (_reduced_mla_dense() if arch == "mla_dense"
+           else reduced_config(get_config("llama3.2-3b")))
     kw = dict(mode="async", batch_prompts=batch_prompts, group_size=4,
               num_inference_instances=1, max_prompt_len=24,
               max_response_len=8, cbatch_slots=8,
@@ -924,49 +965,61 @@ def _parity_reward(resp, answer) -> float:
     return float(np.mean(np.asarray(resp) % 2)) if len(resp) else 0.0
 
 
-def test_no_engine_kernel_runs_off_its_stream(dev):
+@pytest.mark.parametrize("arch", ["llama", "mla_dense"])
+def test_no_engine_kernel_runs_off_its_stream(dev, arch):
     """torch.profiler over a reduced two-iteration training run: every
-    decode kernel (paged decode, Split-L; the graph's warm-up and its
-    replays) and the prefills' SPA forwards run on one stream, the
-    trainer's SPA backwards and forwards on another."""
+    decode kernel (llama's paged decode, Split-L, or the MLA kernel; the
+    graph's warm-up and its replays) runs on one stream, and for llama the
+    prefills' SPA forwards too; the trainer's kernels (llama's SPA
+    backwards and forwards; MLA's plain PyTorch, which launches no kernel
+    of the port) run on another."""
     import collections
     from torch.profiler import ProfilerActivity, profile
-    cfg, sched, parts = _reduced_pipeline(dev)
+    cfg, sched, parts = _reduced_pipeline(dev, arch=arch)
+    decode = "paged_mla_kernel" if cfg.use_mla else "splitl_kernel"
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         hist = sched.run(2)
         torch.cuda.synchronize()
     assert all(s.max_staleness == 0 for s in hist)
     count = collections.defaultdict(collections.Counter)
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.name().startswith(("Memcpy", "Memset")):
             continue
-        for kind in ("splitl_kernel", "spa_fwd", "bwd_tiles"):
+        count[e.device_resource_id()]["all"] += 1
+        for kind in (decode, "spa_fwd", "bwd_tiles"):
             if kind in e.name():
                 count[e.device_resource_id()][kind] += 1
     L = cfg.num_layers
     steps = sum(s.metrics["decode_steps"] for s in hist)
     prefills = sum(s.metrics["prefills"] for s in hist)
     warm = sum(s.metrics["warmup_steps"] for s in hist)
+    engine = max(count, key=lambda s: count[s][decode])
+    assert count[engine][decode] == L * (steps + warm) > L * warm
+    assert sum(c[decode] for s, c in count.items() if s != engine) == 0
+    if cfg.use_mla:
+        assert sum(c["spa_fwd"] + c["bwd_tiles"]
+                   for c in count.values()) == 0
+        # the trainer's forward and backward kernels ran elsewhere
+        assert any(c["all"] for s, c in count.items() if s != engine)
+        return
     trainer = [s for s, c in count.items() if c["bwd_tiles"]]
-    assert len(trainer) == 1
-    engine = max(count, key=lambda s: count[s]["splitl_kernel"])
-    assert engine != trainer[0]
-    assert count[engine]["splitl_kernel"] == L * (steps + warm) > L * warm
+    assert len(trainer) == 1 and engine != trainer[0]
     assert count[engine]["spa_fwd"] == L * prefills > 0
     assert count[trainer[0]]["spa_fwd"] == \
         3 * L * sched.captured_micro_steps
-    assert sum(c["splitl_kernel"] for s, c in count.items()
-               if s != engine) == 0
 
 
-def test_async_training_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("arch", ["llama", "mla_dense"])
+def test_async_training_on_card_matches_cpu(dev, arch):
     """A reduced async run, one group per iteration (a fixed accumulation
     order), on the card (two streams, kernels) and on the CPU: the same
     rollouts (trained tokens and rewards) and parameters within 2e-4 of
     each leaf's largest entry, as the captured grad step's bar above."""
     policies, stats = [], []
     for where in (dev, "cpu"):
-        _, sched, parts = _reduced_pipeline(where, batch_prompts=1)
+        _, sched, parts = _reduced_pipeline(where, batch_prompts=1,
+                                            arch=arch)
         parts["generator"].reward_fn = _parity_reward
         start = [t.cpu().clone() for t in _leaves(parts["tri"].policy)]
         hist = sched.run(2)
@@ -1011,3 +1064,39 @@ def test_flipped_weights_survive_trainer_allocations(dev):
     assert all(s.max_staleness == 0 for s in hist)
     assert flips == [True, True, True]
     assert store.snapshot()[0] is eng.params
+
+
+def test_mla_training_engine_graph_matches_plain(dev):
+    """The f32 MLA decode kernel inside the training engine's captured
+    graph (reduced mla_dense, G 4 rows a group, sampled at temperature 1,
+    captured logprobs): the card's rows are the CPU engine's (the kernel's
+    plain version, eagerly), logprobs within 1e-4, and every decode step
+    launched the kernel once a layer."""
+    from repro_torch.core.paged import PagedGroupEngine
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import init
+    cfg = _reduced_mla_dense()
+    p_cpu = init(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(3, 500, size=(n,)).astype(np.int32)
+               for n in (7, 20, 13)]
+    kw = dict(num_slots=8, page_size=16, num_pages=0, max_prompt_len=24,
+              max_new_tokens=12, group_size=4, temperature=1.0)
+    out = []
+    for where in (dev, "cpu"):
+        eng = PagedGroupEngine(cfg, device=where, **kw)
+        eng.set_params(p_cpu if where == "cpu" else _to_dev(p_cpu, dev))
+        reset_launch_counts()
+        hs = [eng.submit(p, (0, i)) for i, p in enumerate(prompts)]
+        while eng.step():
+            pass
+        torch.cuda.synchronize()
+        if where != "cpu":
+            assert eng.graph_replays == eng.decode_steps > 0
+            assert LAUNCHES["paged_mla_decode_attention"] == \
+                cfg.num_layers * eng.decode_steps
+        out.append([h.result(0) for h in hs])
+    for a, b in zip(*out):
+        assert torch.equal(a.response_ids, b.response_ids)
+        torch.testing.assert_close(a.response_logprobs, b.response_logprobs,
+                                   atol=1e-4, rtol=1e-4)

@@ -15,7 +15,6 @@ through ``build_pipeline`` and the train CLI. On the CPU the engine runs
 its step function eagerly; the card replays it as a CUDA graph
 (``tests/test_torch_cuda.py``).
 """
-import dataclasses
 import threading
 
 import numpy as np
@@ -40,18 +39,13 @@ from repro_torch.launch.train import build_pipeline  # noqa: E402
 from repro_torch.rl.rollout import (ACCEPT_LANE, _filter_logits,  # noqa: E402
                                     _sample_token_rows, row_seed,
                                     uniform_words, uniforms)
+from test_torch_mla import mla_dense  # noqa: E402
 
 T, LP = 8, 16
 _rng = np.random.RandomState(0)
 # mixed lengths, one longer than max_prompt_len (kept to its tail)
 PROMPTS = [_rng.randint(3, 500, size=(n,)).astype(np.int32)
            for n in (3, 10, 6, 21)]
-
-
-def mla_dense(get):
-    return dataclasses.replace(get("deepseek-v2-lite-16b"), num_experts=0,
-                               num_experts_per_tok=0, num_shared_experts=0,
-                               moe_d_ff=0, first_k_dense=0, dense_d_ff=0)
 
 
 def _setup(jax_base, base):
@@ -191,10 +185,12 @@ def test_sampled_tokens_do_not_depend_on_slot_count(gqa):
 # the prefix cache and the drain edge cases
 # ---------------------------------------------------------------------
 
-def test_prefix_cache_warm_fused_equals_cold(gqa):
+@pytest.mark.parametrize("family", ["gqa", "mla"])
+def test_prefix_cache_warm_fused_equals_cold(request, family):
     """Warm serving at D 8 through the radix cache equals cold serving at
-    D 1 (a cached page is bitwise what a cold prefill writes)."""
-    _, cfg, _, params = gqa
+    D 1 (a cached page is bitwise what a cold prefill writes), on K/V
+    pages and on MLA latent pages."""
+    _, cfg, _, params = request.getfixturevalue(family)
     rng = np.random.RandomState(3)
     system = list(rng.randint(3, 200, size=12))
     prompts = [np.asarray(system + list(rng.randint(3, 200, size=3)),

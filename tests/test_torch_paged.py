@@ -95,7 +95,7 @@ def test_admission_waits_for_pages(setup):
 
 
 @pytest.mark.parametrize("change,match", [
-    (("mla", dict(spec_k=2, prefix_cache=True)), "MLA"),
+    (("mla_window", dict(spec_k=2, prefix_cache=True)), "sliding-window"),
     (("window", dict(spec_k=2)), "sliding-window"),
     ("window", "sliding-window"),
     ("moe", "MoE"),
@@ -106,10 +106,9 @@ def test_engine_rejects_unported_configs(change, match):
     if isinstance(change, tuple):
         change, extra = change
         kw.update(extra)
-    if change == "window":
-        cfg = dataclasses.replace(cfg, sliding_window=32)
-    elif change == "mla":
-        cfg = dataclasses.replace(cfg, use_mla=True)
+    if change in ("window", "mla_window"):
+        cfg = dataclasses.replace(cfg, sliding_window=32,
+                                  use_mla=change == "mla_window")
     elif change == "moe":
         cfg = dataclasses.replace(cfg, num_experts=4)
     else:

@@ -5,7 +5,10 @@ uses) make runs comparable: Proposition 1 (sync == async parameters), the
 weight-plane's overlap-on == overlap-off trajectory (bitwise within
 torch), strict on-policy consumption, and the parameter trajectory of the
 JAX ``build_pipeline`` on the same weights and rollouts. A paged-engine
-run and the train CLI complete on the reduced model.
+run (with spec decode and the radix cache riding along for MLA) and the
+train CLI complete on the reduced model. The model-level tests run on
+reduced llama3.2-3b and reduced ``mla_dense`` (deepseek-v2-lite with MoE
+off).
 """
 import json
 
@@ -33,6 +36,7 @@ from repro_torch.data.tokenizer import Tokenizer  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.train import build_pipeline  # noqa: E402
 from repro_torch.rl.rollout import RolloutBatch  # noqa: E402
+from test_torch_mla import mla_dense  # noqa: E402
 
 T = 8
 
@@ -81,23 +85,72 @@ def _rl(mode: str, **kw) -> RLConfig:
     return RLConfig(**base)
 
 
-@pytest.fixture(scope="module")
-def cfg():
-    return reduced_config(get_config("llama3.2-3b"))
+# the reduced configs of the two trained families, built by each package
+ARCHS = {"llama": lambda get: get("llama3.2-3b"), "mla_dense": mla_dense}
+
+
+# Adam's step lr * g / (|g| + 1e-8) is eps-dominated where a gradient is
+# within f32 rounding of zero, and there the two packages' steps may differ
+# by up to lr: one w_gate element of reduced mla_dense has a first
+# gradient of 2.2e-8 in the port and 3.7e-8 in JAX (its leaf's largest is
+# 0.099; the leaf's two gradients differ by at most 6e-8) and steps
+# 1.17e-4 against 1.81e-4. For mla_dense the trajectory bar therefore holds
+# an element whose two gradients differ and both lie below NEAR_ZERO of
+# their leaf's largest JAX gradient in some step to lr instead, and such
+# elements must be at most MAX_NEAR_ZERO of the tree (515 of 1.29 M here).
+# llama keeps the bar on every element.
+NEAR_ZERO = 1e-6
+MAX_NEAR_ZERO = 1e-3
+
+
+@pytest.fixture(scope="module", params=list(ARCHS))
+def arch(request):
+    return request.param
 
 
 @pytest.fixture(scope="module")
-def jparams():
-    return jax.device_get(jax_init(jax.random.PRNGKey(0),
-                                   jax_reduced(jax_get_config("llama3.2-3b"))))
+def jcfg(arch):
+    return jax_reduced(ARCHS[arch](jax_get_config))
+
+
+@pytest.fixture(scope="module")
+def cfg(arch):
+    return reduced_config(ARCHS[arch](get_config))
+
+
+@pytest.fixture(scope="module")
+def jparams(jcfg):
+    return jax.device_get(jax_init(jax.random.PRNGKey(0), jcfg))
+
+
+def _build(cfg, jparams, mode, **kw):
+    return build_pipeline(
+        cfg, _rl(mode, **kw), seed=0, scripted_fn=scripted, device="cpu",
+        params=from_jax(jparams, cfg, device="cpu"))
 
 
 def _run(cfg, jparams, mode, iterations=3, **kw):
-    sched, parts = build_pipeline(
-        cfg, _rl(mode, **kw), seed=0, scripted_fn=scripted, device="cpu",
-        params=from_jax(jparams, cfg, device="cpu"))
+    sched, parts = _build(cfg, jparams, mode, **kw)
     hist = sched.run(iterations)
     return sched, parts, hist
+
+
+def _record_grads(sched, to_np):
+    """Wraps a scheduler's ``apply_update`` (either package's) so that
+    each update's mean gradient is kept, as a numpy tree."""
+    grads, update = [], sched.apply_update
+
+    def apply_update(params, opt, g):
+        grads.append(to_np(g))
+        return update(params, opt, g)
+    sched.apply_update = apply_update
+    return grads
+
+
+def _at(tree, path):
+    for p in path:
+        tree = tree[p.key]
+    return np.asarray(tree)
 
 
 def _leaves(tree):
@@ -157,35 +210,50 @@ def test_offpolicy_baseline_is_stale(cfg, jparams):
     assert max(s.max_staleness for s in hist) >= 1
 
 
-def test_trajectory_matches_jax_pipeline(cfg, jparams):
+def test_trajectory_matches_jax_pipeline(cfg, jcfg, jparams):
     """Two sync iterations on the same weights and scripted rollouts: the
-    port's parameters track the JAX package's (f32, Adam at lr 1e-3)."""
+    port's parameters track the JAX package's (f32, Adam at lr 1e-3); for
+    mla_dense, all but the few elements whose gradient is rounding."""
     jrl = JaxRL(mode="sync", batch_prompts=3, group_size=4, micro_batch=2,
                 num_inference_instances=2, max_prompt_len=24,
                 max_response_len=T, learning_rate=1e-3, seed=0)
-    jcfg = jax_reduced(jax_get_config("llama3.2-3b"))
     jsched, jparts = jax_pipeline(jcfg, jrl, seed=0, scripted_fn=jax_scripted)
+    jgrads = _record_grads(jsched, jax.device_get)
     jsched.run(2)
-    _, parts, hist = _run(cfg, jparams, "sync", iterations=2)
+    sched, parts = _build(cfg, jparams, "sync")
+    grads = _record_grads(sched, to_numpy)
+    hist = sched.run(2)
     assert [s.trained_tokens for s in hist] == \
         [s.trained_tokens for s in jsched.history]
+    assert len(grads) == len(jgrads) == 2
     want = jax.device_get(jparts["tri"].policy)
     got = to_numpy(parts["tri"].policy)
+    near_zero = total = 0
     for path, w in jax.tree_util.tree_leaves_with_path(want):
-        g = got
-        for p in path:
-            g = g[p.key]
-        np.testing.assert_allclose(g, np.asarray(w), atol=5e-5, rtol=5e-4,
+        g, w = _at(got, path), np.asarray(w)
+        near = np.zeros(w.shape, bool)
+        for step, jstep in zip(grads, jgrads) if cfg.use_mla else ():
+            a, b = _at(step, path), _at(jstep, path)
+            tiny = NEAR_ZERO * max(float(np.abs(b).max()), 1e-30)
+            near |= (a != b) & (np.abs(a) < tiny) & (np.abs(b) < tiny)
+        near_zero, total = near_zero + int(near.sum()), total + near.size
+        np.testing.assert_allclose(g[~near], w[~near], atol=5e-5, rtol=5e-4,
                                    err_msg=str(path))
+        np.testing.assert_allclose(g[near], w[near], atol=jrl.learning_rate,
+                                   rtol=0, err_msg=str(path))
+    assert near_zero <= MAX_NEAR_ZERO * total, (near_zero, total)
 
 
 def test_paged_engine_pipeline_on_cpu(cfg):
     """Two async iterations with the paged engine on the CPU, SPA packing,
-    captured logprobs and a bf16 wire: on-policy, and after the last flip
-    the pool holds the bf16-rounded policy of that version."""
+    captured logprobs and a bf16 wire (for MLA with spec decode, k 2, and
+    the radix cache riding along): on-policy, and after every flip the
+    pool holds the bf16-rounded policy of that version."""
+    planes = dict(spec_decode=True, spec_k=2, prefix_cache=True) \
+        if cfg.use_mla else {}
     rl = _rl("async", batch_prompts=2, group_size=4, num_inference_instances=1,
              max_prompt_len=48, cbatch_slots=8, shared_prompt_attention=True,
-             transfer_wire_dtype="bfloat16", learning_rate=1e-2)
+             transfer_wire_dtype="bfloat16", learning_rate=1e-2, **planes)
     sched, parts = build_pipeline(cfg, rl, seed=0, device="cpu")
     flips = []
     ensure = sched.transfer.ensure
@@ -205,6 +273,9 @@ def test_paged_engine_pipeline_on_cpu(cfg):
         sched.recomputed_micro_steps == 0
     assert all(s.metrics["prefills"] == 2 and s.metrics["decode_steps"] > 0
                for s in hist)
+    if cfg.use_mla:     # the spec verify steps and the radix walk ran
+        assert all(s.metrics["spec_steps"] > 0 and
+                   s.metrics["prefix_miss_pages"] > 0 for s in hist)
     inst = parts["pool"].instances[0]
     assert inst.store.version == 1 and inst.store.staged_version == 2
     staged = inst.store.staged_params()

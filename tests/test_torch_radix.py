@@ -2,13 +2,17 @@
 
 The tree alone: the same sequence of ``lookup``, ``insert`` and ``evict``
 calls on the port's and the JAX ``RadixCache`` gives the same results,
-pages and refcounts. In the engine (reduced llama3.2-3b, f32, page 4, the
-same weights through ``convert.py``): warm (radix-served) tokens identical
-to cold with spec off and on; ``prefix_hit_pages`` equal to the JAX
-engine's on the same submit order; a warm suffix prefill's last-token
-logits against the cold prefill's; eviction under a tight pool; and
-``serve_shared`` against the JAX ``serve_shared``.
+pages and refcounts. In the engine (reduced llama3.2-3b, and reduced
+``mla_dense``, deepseek-v2-lite with MoE off, whose pages hold latent
+rows; f32, page 4, the same weights through ``convert.py``): warm
+(radix-served) tokens identical to cold with spec off and on;
+``prefix_hit_pages`` equal to the JAX engine's on the same submit order;
+a warm suffix prefill's last-token logits against the cold prefill's;
+eviction under a tight pool; and ``serve_shared`` against the JAX
+``serve_shared``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -29,6 +33,7 @@ from repro_torch.core.paged import (FIRST_PAGE, PageAllocator,  # noqa: E402
                                     PagedGroupEngine)
 from repro_torch.core.radix import RadixCache  # noqa: E402
 from repro_torch.launch.serve import serve_shared  # noqa: E402
+from test_torch_mla import mla_dense  # noqa: E402
 
 K = 3
 LP, T, PAGE = 24, 10, 4
@@ -101,10 +106,15 @@ def test_radix_rejects_partial_page_insert_and_dead_retain():
 # the engine
 # ---------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_reduced(jax_get_config("llama3.2-3b"))
-    cfg = reduced_config(get_config("llama3.2-3b"))
+# the reduced configs of the two families with prefix pages, built by each
+# package (tests/test_radix.py's "gqa" and "mla" variants)
+ARCHS = {"llama": lambda get: get("llama3.2-3b"), "mla_dense": mla_dense}
+
+
+@pytest.fixture(scope="module", params=list(ARCHS))
+def setup(request):
+    jcfg = jax_reduced(ARCHS[request.param](jax_get_config))
+    cfg = reduced_config(ARCHS[request.param](get_config))
     jparams = jax_init(jax.random.PRNGKey(0), jcfg)
     return jcfg, cfg, jparams, from_jax(jax.device_get(jparams), cfg,
                                         device="cpu")
@@ -279,7 +289,6 @@ def test_serve_shared_matches_jax(setup):
 
 
 def test_prefix_plane_refuses_what_the_port_lacks():
-    import dataclasses
     cfg = dataclasses.replace(reduced_config(get_config("llama3.2-3b")),
                               sliding_window=16)
     with pytest.raises(ValueError, match="sliding-window"):
