@@ -171,6 +171,38 @@ The profile phases also time each replay with CUDA events
      launch 0 times, as do the GQA paged kernels; transfer_cast = leaves
      x publishes.
 
+ 17. moe_serve (last, after every earlier model, engine and pool is
+     freed; the memory still allocated is printed first): deepseek-v2-lite
+     as published (27 layers: 1 dense prelude layer, d_ff 10944, and 26
+     MoE layers of 64 experts top-6 with 2 shared, moe_d_ff 1408; MLA;
+     vocab 102400; 15.7 B parameters, random bf16 weights made on the card
+     from --seed, the router in f32), held on the card once (every
+     engine adopts the one tree: set_params(adopt=True); phases 11, 12,
+     9 and 15 now adopt theirs too). (d) moe_profile: phase
+     4's two windows of 8 decode steps at 4 busy slots, with the MoE
+     layers' own device time at the decode shape (one CUDA graph of the 26
+     layers' moe_ffn) as a share of the replayed step, and the step's
+     weight-read bound (every leaf once, the f32 LM head, B embedding rows:
+     the static (E, C) dispatch reads every expert of every MoE layer);
+     then, with a test-side counter of the (token, choice) pairs each
+     expert's capacity drops (per forward kind: prefill, decode, verify;
+     its adds run inside the captured steps), (a) moe_serve: phase 11's
+     workload at D 1 and at D 8 (MLA decode launches 27 x decode steps,
+     all of them replays; every other kernel 0; every page back; finite
+     logits), (b) moe_spec_serve: spec decode (MLA verify = 27 x verify
+     forwards, MLA decode 0), (c) moe_radix_serve: phase 15's
+     shared-system workload (7 x 32 hit pages, MLA verify = 27 x (warm
+     prefills + verify forwards)), each with tok/s, TTFT / TPOT p50/p99,
+     peak memory and the drop counts; then moe_parity: reduced
+     deepseek-v2-lite and reduced qwen3-moe (2 layers, 4 experts top-2,
+     f32) on the card against the CPU, greedy: prefill logits within 1e-3,
+     the prefill's chosen experts identical (a flip passes only where the
+     K-th and (K+1)-th probabilities are within 1e-5; the line counts
+     them), tokens identical with spec off, spec on and at D 3 (a run is
+     excused only where the CPU's routing came within 1e-5 of a tie), and
+     the SPA, paged decode and paged verify kernels (qwen3-moe) or the MLA
+     pair (deepseek) launched by their formulas.
+
 The SPA kernels run bf16 on the tensor cores (wgmma, with the
 probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
 (register tiles, no TF32). Phase 2 also holds the SPA backward kernel
@@ -205,7 +237,9 @@ case with phase 12's (bf16, with the plan's splits and blocks; the long
 decode, f32 and windowed cases of phase 2 beside them under their names,
 the decode entry's "training" case with phase 16's launches, in all and
 per iteration, and the verify entry's "suffix_prefill" case with phase
-15's spec-off launches); and last {"ok": true, "device": {...}}.
+15's spec-off launches; both MLA entries also carry phase 17's launches
+on deepseek-v2-lite as published); and last {"ok": true, "device":
+{...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
 """
@@ -1158,7 +1192,9 @@ def radix_ttft(torch, np, dev, cfg, params, prompts, seed: int):
     with the radix cache and on one without: request 0 is cold on both,
     requests 1..7 are warm (suffix prefill) on the first and cold on the
     second."""
-    from repro_torch.launch.serve import build_paged_engine, serve_requests
+    from repro_torch.launch.serve import (build_paged_engine,
+                                          compute_latency_metrics,
+                                          serve_requests)
     full = max(len(p) for p in prompts)
     kw = dict(max_prompt_len=full, max_new=32, num_slots=len(prompts),
               page_size=16, temperature=0.7)
@@ -1166,15 +1202,20 @@ def radix_ttft(torch, np, dev, cfg, params, prompts, seed: int):
     out = {"gap_s": TTFT_GAP_S}
     for name, prefix in (("cold", False), ("warm", True)):
         eng = build_paged_engine(cfg, prefix_cache=prefix, device=dev, **kw)
-        eng.set_params(params)            # the graph's capture, outside
+        # the graph's capture, outside; the engine adopts the weights
+        eng.set_params(params, adopt=True)
         reqs, _, _ = serve_requests(cfg, prompts, params=params, engine=eng,
                                     seed=seed, arrivals=arrivals,
                                     prefix_cache=prefix, **kw)
         torch.cuda.synchronize()
         later = sorted(r.ttft for r in reqs if r.rid > 0)
+        m = compute_latency_metrics(reqs)
         out[name] = {"first_request_ttft_s": reqs[0].ttft,
                      "ttft_p50_s": float(np.percentile(later, 50)),
                      "ttft_p99_s": float(np.percentile(later, 99)),
+                     "tpot_p50_s": m["tpot_p50_s"],
+                     "tpot_p99_s": m["tpot_p99_s"],
+                     "tok_per_s": m["tok_per_s"],
                      "warm_prefills": eng.warm_prefills,
                      "cold_prefills": eng.prefills}
         del eng
@@ -1186,9 +1227,12 @@ def radix_ttft(torch, np, dev, cfg, params, prompts, seed: int):
 
 
 def radix_serve(torch, np, dev, cfg, params, seed: int,
-                phase: str = "radix_serve"):
+                phase: str = "radix_serve", drops=None):
     """serve_shared over a 512-token system prompt and 8 suffixes, spec
-    off and then on, and the warm against cold TTFT (``radix_ttft``)."""
+    off and then on, and the warm against cold TTFT (``radix_ttft``).
+    ``drops``: a MoE drop counter's ``take`` (phase 17), read into each
+    run's line. Each engine adopts ``params`` (no clone: phase 17's
+    weights fill more than a third of the card)."""
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import build_paged_engine, serve_shared
     rng = np.random.RandomState(seed + 9)
@@ -1209,8 +1253,10 @@ def radix_serve(torch, np, dev, cfg, params, seed: int,
                                  prefix_cache=True, device=dev)
         # the first set_params captures the step's graph (its warm-up
         # launches are not the serving run's)
-        eng.set_params(params)
+        eng.set_params(params, adopt=True)
         torch.cuda.synchronize()
+        if drops is not None:
+            drops()                       # the graph's warm-up routed too
         reset_launch_counts()
         t0 = time.perf_counter()
         done, stats = serve_shared(cfg, system, suffixes, max_prompt_len=full,
@@ -1249,6 +1295,8 @@ def radix_serve(torch, np, dev, cfg, params, seed: int,
             run.update(acceptance_rate=stats["acceptance_rate"],
                        tokens_per_forward=stats["tokens_per_forward"],
                        rolled_back_pages=stats["rolled_back_pages"])
+        if drops is not None:
+            run["moe_drops"] = drops()
         runs.append(run)
         if snap["prefix_hit_pages"] != 7 * 32 or snap["prefills"] != 1 or \
                 snap["warm_prefills"] != 7:
@@ -1419,35 +1467,40 @@ def _pool_bytes_per_token(cfg) -> int:
                                       for _, shp in cache_streams(cfg))
 
 
-def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
-    """Full-width mla_dense through RequestDriver and the paged engine,
-    spec decode off (phase 11) or on (phase 12). Returns (params, engine,
-    prompts, result)."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
-    from repro_torch.launch.serve import build_paged_engine, serve_requests
-    from repro_torch.models import init
-    cfg = mla_dense_config()
-    torch.cuda.reset_peak_memory_stats(dev)
-    init_s = None
-    if params is None:
-        t0 = time.time()
-        params = init(cfg, seed=seed, device=dev)
-        torch.cuda.synchronize()
-        init_s = time.time() - t0
+def phase11_prompts(np, cfg, seed: int):
+    """Phase 11's 8 prompts of 64 to 1024 tokens (one of 1024)."""
     rng = np.random.RandomState(seed + 11)
     lens = rng.randint(64, 1025, size=8)
     lens[int(np.argmax(lens))] = 1024
-    prompts = [rng.randint(3, cfg.vocab_size, size=(int(n),)).astype(np.int32)
-               for n in lens]
+    return [rng.randint(3, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+            for n in lens]
+
+
+def serve_run(torch, np, dev, cfg, params, prompts, seed: int, *,
+              phase: str, spec_k: int = 0, drain: int = 1, counter=None):
+    """An MLA model (mla_dense or deepseek-v2-lite as published) serves
+    ``prompts`` through RequestDriver on a fresh engine (32 new tokens, 4
+    slots, page 16, temperature 0.7; D ``drain``, spec k ``spec_k``),
+    after a warm-up request. The engine adopts ``params`` (no clone: the
+    weights stay on the card once). Checks launches (the MLA decode
+    kernel, the verify kernel with spec, L x steps, all of them replays;
+    every other kernel 0), every page back, the tokens, finite logits and,
+    with a MoE drop ``counter``, its forwards by kind. Returns (engine,
+    result line)."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine, serve_requests
     kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
               temperature=0.7, spec_k=spec_k)
-    eng = build_paged_engine(cfg, device=dev, **kw)
-    # keep the engine's copy: phase 11 hands its own tree over (as phase 3)
-    params = eng.set_params(params)
+    eng = build_paged_engine(cfg, device=dev, drain_interval=drain, **kw)
+    t0 = time.perf_counter()
+    eng.set_params(params, adopt=True)         # pool, capture
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
     serve_requests(cfg, prompts[:1], params=params, engine=eng, seed=seed,
                    arrivals=np.zeros(1), **kw)        # warm-up request
     eng.reset_stats()
+    if counter is not None:
+        counter.take()
     torch.cuda.synchronize()
     reset_launch_counts()
     reqs, m, stats = serve_requests(cfg, prompts, params=params, engine=eng,
@@ -1458,29 +1511,27 @@ def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
     snap = eng.stats_snapshot()
     L = cfg.num_layers
     steps = snap["decode_steps"]
+    verify, decode = PAGED_KERNELS[True]
     expect = {name: 0 for name in launches}
-    expect["paged_mla_verify_attention" if spec_k
-           else "paged_mla_decode_attention"] = L * steps
-    phase = "mla_spec_serve" if spec_k else "mla_serve"
+    expect[verify if spec_k else decode] = L * steps
     out = {
-        "phase": phase, "arch": cfg.name, "moe": False, "layers": L,
-        "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "phase": phase, "arch": cfg.name, "moe": cfg.num_experts > 0,
+        "layers": L, "d_model": cfg.d_model, "heads": cfg.num_heads,
         "kv_lora_rank": cfg.kv_lora_rank,
-        "qk_rope_head_dim": cfg.qk_rope_head_dim,
-        "params": sum(t.numel() for t in _leaves(params)),
-        "dtype": cfg.param_dtype, "init_s": init_s,
-        "requests": len(reqs), "prompt_lens": [int(n) for n in lens],
-        "max_new": 32, "slots": 4, "page": 16, "temperature": 0.7,
-        "spec_k": spec_k, "generated_tokens": m["generated_tokens"],
+        "qk_rope_head_dim": cfg.qk_rope_head_dim, "dtype": cfg.param_dtype,
+        "drain_interval": drain, "requests": len(reqs),
+        "prompt_lens": [len(p) for p in prompts], "max_new": 32, "slots": 4,
+        "page": 16, "temperature": 0.7, "spec_k": spec_k,
+        "generated_tokens": m["generated_tokens"],
         "tok_per_s": m["tok_per_s"], "makespan_s": m["makespan_s"],
         "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
         "tpot_p50_s": m["tpot_p50_s"], "tpot_p99_s": m["tpot_p99_s"],
         "prefills": snap["prefills"],
         ("verify_forwards" if spec_k else "decode_steps"): steps,
+        "graph_replays": snap["graph_replays"],
+        "first_set_params_ms": first_ms, "graph": eng.capture_ms,
         "peak_pages": stats["peak_pages"],
         "pool_bytes_per_token": _pool_bytes_per_token(cfg),
-        "llama3.2-3b_pool_bytes_per_token": _pool_bytes_per_token(
-            get_config("llama3.2-3b")),
         "launches": launches, "expected_launches": expect,
         "pages_conserved": _pages_conserved(eng),
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
@@ -1492,17 +1543,49 @@ def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
                    acceptance_rate=stats["acceptance_rate"],
                    tokens_per_forward=stats["tokens_per_forward"],
                    rolled_back_pages=stats["rolled_back_pages"])
-    if {k: launches[k] for k in expect} != expect or steps == 0 or \
+    replays = snap["graph_replays"] * (1 if spec_k else drain)
+    if launches != expect or steps == 0 or replays != steps or \
             snap["prefills"] != len(prompts):
-        fail(f"{phase}: launches {launches} != {expect}")
+        fail(f"{phase} D {drain}: launches {launches} != {expect} "
+             f"({snap['graph_replays']} replays, {steps} steps)")
     if not out["pages_conserved"]:
-        fail(f"{phase}: pages did not all return to the freelist")
+        fail(f"{phase} D {drain}: pages did not all return to the freelist")
     for r in reqs:
         if not 1 <= len(r.tokens) <= 32 or \
                 not all(0 <= t < cfg.vocab_size for t in r.tokens):
             fail(f"{phase}: request {r.rid}: bad tokens {r.tokens}")
     if not bool(torch.isfinite(eng.logits).all()):
         fail(f"{phase}: non-finite logits after serving")
+    if counter is not None:
+        out["moe_drops"] = drops = counter.take()
+        if drops["prefill"]["forwards"] != len(prompts) or \
+                drops["verify" if spec_k else "decode"]["forwards"] != steps:
+            fail(f"{phase}: MoE forwards by kind {drops} do not match "
+                 f"{len(prompts)} prefills and {steps} steps")
+    return eng, out
+
+
+def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
+    """Full-width mla_dense through RequestDriver and the paged engine,
+    spec decode off (phase 11) or on (phase 12). Returns (params, engine,
+    prompts, result)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    cfg = mla_dense_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    init_s = None
+    if params is None:
+        t0 = time.time()
+        params = init(cfg, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+    prompts = phase11_prompts(np, cfg, seed)
+    eng, out = serve_run(torch, np, dev, cfg, params, prompts, seed,
+                         phase="mla_spec_serve" if spec_k else "mla_serve",
+                         spec_k=spec_k)
+    out.update(params=sum(t.numel() for t in _leaves(params)), init_s=init_s,
+               **{"llama3.2-3b_pool_bytes_per_token": _pool_bytes_per_token(
+                   get_config("llama3.2-3b"))})
     return params, eng, prompts, out
 
 
@@ -2091,6 +2174,307 @@ def device_loop(torch, np, dev, seed: int):
 
 
 # ---------------------------------------------------------------------
+# phase 17: deepseek-v2-lite as published (MLA + MoE); reduced MoE parity
+# ---------------------------------------------------------------------
+
+MOE_KINDS = ("prefill", "decode", "verify")
+
+
+class DropCounter:
+    """A test-side wrapper, not an engine feature: per forward kind
+    (prefill: one row; decode: one token a row; verify: several tokens a
+    row), the MoE layer calls, the (token, choice) pairs routed and those
+    dropped past an expert's capacity, added up in device tensors. The adds
+    run inside the engine's captured step, so the counter is installed
+    before an engine's first ``set_params`` and every replay counts;
+    ``take`` reads and zeroes the tensors in place (the graph holds their
+    addresses)."""
+
+    def __init__(self, torch, dev, moe_layers: int):
+        from repro_torch.models import moe, transformer
+        self.torch, self.moe_layers = torch, moe_layers
+        self.counts = {k: torch.zeros(3, dtype=torch.int64, device=dev)
+                       for k in MOE_KINDS}
+        self._saved = (moe._dispatch_slots, transformer.moe_ffn)
+        dispatch, ffn = self._saved
+        kind = ["prefill"]
+        counts = self.counts
+
+        def counting_dispatch(top_i, E, C):
+            slot, keep = dispatch(top_i, E, C)
+            c = counts[kind[0]]
+            c[0:1].add_(1)                       # scalars: no host copy
+            c[1:2].add_(keep.numel())
+            c[2:3].add_((~keep).sum())
+            return slot, keep
+
+        def classifying_ffn(params, cfg, x, **kw):
+            B, S, _ = x.shape
+            kind[0] = ("decode" if S == 1 else "prefill" if B == 1
+                       else "verify")
+            return ffn(params, cfg, x, **kw)
+        moe._dispatch_slots = counting_dispatch
+        transformer.moe_ffn = classifying_ffn
+
+    def remove(self) -> None:
+        from repro_torch.models import moe, transformer
+        moe._dispatch_slots, transformer.moe_ffn = self._saved
+
+    def take(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {}
+        for k, c in self.counts.items():
+            calls, pairs, dropped = c.tolist()
+            c.zero_()
+            fwd = calls // self.moe_layers
+            out[k] = {"forwards": fwd, "pairs": pairs,
+                      "dropped_pairs": dropped,
+                      "dropped_per_forward": dropped / fwd if fwd else 0.0}
+        self.torch.cuda.synchronize()
+        return out
+
+
+def _step_weight_bytes(cfg, params, B: int) -> dict:
+    """Bytes of weights one decode step of B slots reads: every leaf once
+    but the embedding table (B rows) and the bf16 LM head, which the
+    engine replaces by its own f32 copy (d x V x 4); the MoE experts' part
+    beside it (the static (E, C) dispatch runs every expert)."""
+    embed = params["embed"]["embedding"]
+    total = B * embed.shape[1] * embed.element_size()
+    total += cfg.d_model * cfg.vocab_size * 4
+    for k, sub in params.items():
+        if k != "embed":
+            total += sum(t.numel() * t.element_size() for t in _leaves(sub))
+    moe = params["layers"]["moe"]
+    experts = sum(moe[k].numel() * moe[k].element_size()
+                  for k in ("w_gate", "w_up", "w_down"))
+    return {"step": total, "experts": experts,
+            "moe_layers": sum(t.numel() * t.element_size()
+                              for t in _leaves(moe))}
+
+
+def moe_layers_ms(torch, cfg, params, dev, B: int = 4, reps: int = 5):
+    """Device ms of the MoE layers alone at the decode shape (B tokens),
+    one CUDA graph of every MoE layer's ``moe_ffn`` replayed ``reps``
+    times between events (the same kernels a decode step launches for
+    them; its dispatch, expert products, combine and shared experts)."""
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.transformer import layer
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    moes = [layer(params["layers"], i)["moe"] for i in range(n_moe)]
+
+    def run():
+        for lp in moes:
+            moe_ffn(lp, cfg, x)
+    run()                                       # warm-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        run()
+    g.replay()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / reps
+    del g
+    return ms
+
+
+def moe_serve(torch, np, dev, seed: int, smi: str):
+    """Phase 17: full-width deepseek-v2-lite-16b as published through the
+    paged engine: (d) a profiled decode window on an engine without the
+    drop counter, then with it (a) phase 11's workload at D 1 and D 8,
+    (b) spec decode, (c) phase 15's shared-system workload. Every engine
+    adopts the one tree of weights. Yields the result lines as they come."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_paged_engine, serve_requests
+    from repro_torch.models import init
+    cfg = get_config("deepseek-v2-lite-16b")
+    L = cfg.num_layers
+    n_moe = L - cfg.first_k_dense
+    torch.cuda.synchronize()
+    yield {"phase": "moe_serve_start", "card": smi,
+           "memory_allocated_gib": torch.cuda.memory_allocated(dev) / 2 ** 30}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    params = init(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    weights = _step_weight_bytes(cfg, params, B=4)
+    prompts = phase11_prompts(np, cfg, seed)
+    # (d) the profile, on an engine whose graph holds no counter
+    kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
+              temperature=0.7)
+    eng = build_paged_engine(cfg, device=dev, **kw)
+    eng.set_params(params, adopt=True)
+    serve_requests(cfg, prompts[:1], params=params, engine=eng, seed=seed,
+                   arrivals=np.zeros(1), **kw)        # warm-up request
+    prof = profile_decode(torch, np, eng, prompts, seed,
+                          kernels=MLA_PROFILE_KERNELS)
+    del eng
+    gc.collect()
+    moe_ms = moe_layers_ms(torch, cfg, params, dev)
+    step_ms = prof["replay_device_ms_per_step"]
+    bound_ms = weights["step"] / HBM_BYTES_PER_S * 1e3
+    prof.update({
+        "phase": "moe_profile", "arch": cfg.name, "params": n_params,
+        "param_bytes": param_bytes, "init_s": init_s,
+        "moe_layers": n_moe, "moe_layers_device_ms_per_step": moe_ms,
+        "moe_share_of_replay_step": moe_ms / step_ms,
+        "step_weight_read_bytes": weights["step"],
+        "expert_weight_bytes": weights["experts"],
+        "moe_layer_weight_bytes": weights["moe_layers"],
+        "step_weight_read_bound_ms": bound_ms,
+        "expert_read_bound_ms": weights["experts"] / HBM_BYTES_PER_S * 1e3,
+        "replay_step_over_bound": step_ms / bound_ms,
+        "mla_kernel_ms_per_step": sum(prof["kernel_ms_per_step"].values()),
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+    yield prof
+    counter = DropCounter(torch, dev, n_moe)
+    try:
+        for phase, drain, spec_k in (("moe_serve", 1, 0), ("moe_serve", 8, 0),
+                                     ("moe_spec_serve", 1, SPEC_K)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            eng, out = serve_run(torch, np, dev, cfg, params, prompts, seed,
+                                 phase=phase, spec_k=spec_k, drain=drain,
+                                 counter=counter)
+            del eng                 # its pool and head before the next's
+            gc.collect()
+            yield out
+        yield radix_serve(torch, np, dev, cfg, params, seed,
+                          phase="moe_radix_serve", drops=counter.take)
+    finally:
+        counter.remove()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_parity(torch, np, dev, seed: int):
+    """Reduced deepseek-v2-lite and reduced qwen3-moe (2 layers, f32) on
+    the card against the CPU, greedy: prefill logits within 1e-3; the
+    prefill's chosen experts identical, a flip passing only where the
+    K-th and (K+1)-th probabilities are within 1e-5; tokens identical with
+    spec off, spec on and at D 3 (a run is excused only if the CPU's
+    routing came within 1e-5 of a tie somewhere in it); each engine
+    kernel's launches against its formula."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.serve import build_paged_engine, serve_paged
+    from repro_torch.models import forward, init, moe
+    route = moe._route
+    seen = {"cpu_gap": float("inf"), "log": None}
+
+    def recording_route(params, cfg, xf, want_aux):
+        out = route(params, cfg, xf, want_aux)
+        if xf.device.type == "cpu" or seen["log"] is not None:
+            probs = torch.softmax(xf.float() @ params["router"], dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).values
+            K = cfg.num_experts_per_tok
+            gap = top[:, K - 1] - top[:, K]
+            if xf.device.type == "cpu":
+                seen["cpu_gap"] = min(seen["cpu_gap"], float(gap.min()))
+            if seen["log"] is not None:
+                seen["log"].append((out[1].cpu(), gap.cpu()))
+        return out
+    moe._route = recording_route
+    lines = []
+    try:
+        for arch in ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"):
+            cfg = reduced_config(get_config(arch))
+            L = cfg.num_layers
+            verify, decode = PAGED_KERNELS[cfg.use_mla]
+            p_cpu = init(cfg, seed=seed, device="cpu")
+            p_gpu = _to(p_cpu, dev)
+            rng = np.random.RandomState(seed + 17)
+            prompts = []
+            for n in rng.randint(8, 40, size=4):
+                base = rng.randint(3, cfg.vocab_size, size=(int(n) // 2 + 1,))
+                prompts.append(np.concatenate([base, base])[:int(n)]
+                               .astype(np.int32))
+            kw = dict(max_prompt_len=48, max_new=16, num_slots=2,
+                      page_size=16, temperature=0.0)
+            runs, excused = {}, []
+            for name, over in (("plain", {}), ("spec", {"spec_k": SPEC_K}),
+                               ("d3", {"drain_interval": 3})):
+                # serve_paged's run, with the graph's warm-up launches
+                # (at the first set_params) left out of the counts
+                eng = build_paged_engine(cfg, device=dev, **kw, **over)
+                params = eng.set_params(p_gpu)
+                torch.cuda.synchronize()
+                n0 = dict(LAUNCHES)
+                gpu = eng.serve(params, prompts, seed + 1)
+                torch.cuda.synchronize()
+                got = {k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
+                steps = eng.decode_steps
+                del eng, params
+                want = {k: 0 for k in LAUNCHES}
+                want["spa_attention"] = 0 if cfg.use_mla else L * len(prompts)
+                want[verify if "spec_k" in over else decode] = L * steps
+                if got != want:
+                    fail(f"moe parity {cfg.name} {name}: launches {got} != "
+                         f"{want}")
+                seen["cpu_gap"] = float("inf")
+                cpu, _ = serve_paged(cfg, prompts, device="cpu",
+                                     params=p_cpu, seed=seed, **kw, **over)
+                runs[name] = (_tokens(gpu), _tokens(cpu))
+                if runs[name][0] != runs[name][1]:
+                    if seen["cpu_gap"] >= 1e-5:
+                        fail(f"moe parity {cfg.name} {name}: card tokens "
+                             f"{runs[name][0]} != CPU {runs[name][1]} with "
+                             f"no routing tie within 1e-5 "
+                             f"(closest {seen['cpu_gap']})")
+                    excused.append(name)
+            toks = torch.from_numpy(rng.randint(3, cfg.vocab_size,
+                                                size=(2, 48)))
+            logs = []
+            for params, where in ((p_cpu, "cpu"), (p_gpu, dev)):
+                seen["log"] = []
+                lg, _ = forward(params, cfg, toks.to(where))
+                logs.append((lg.cpu(), seen["log"]))
+                seen["log"] = None
+            (lg_cpu, log_cpu), (lg_gpu, log_gpu) = logs
+            err = float((lg_gpu - lg_cpu).abs().max())
+            flips = tied_flips = 0
+            for (i_cpu, gap), (i_gpu, _) in zip(log_cpu, log_gpu):
+                rows = (i_cpu.sort(-1).values != i_gpu.sort(-1).values
+                        ).any(-1)
+                flips += int(rows.sum())
+                tied_flips += int((rows & (gap <= 1e-5)).sum())
+            line = {"phase": "moe_parity", "arch": cfg.name,
+                    "dtype": "float32", "layers": L,
+                    "experts": cfg.num_experts,
+                    "top_k": cfg.num_experts_per_tok,
+                    "requests": len(prompts), "spec_k": SPEC_K,
+                    "tokens": sum(len(t) for t in runs["plain"][1].values()),
+                    "tokens_identical": [k for k in runs
+                                         if k not in excused],
+                    "excused_by_a_routing_tie": excused,
+                    "prefill_logits_max_abs_err": err, "tol": 1e-3,
+                    "prefill_routing_layers": len(log_cpu),
+                    "prefill_routing_flips": flips,
+                    "prefill_routing_flips_at_a_tie": tied_flips,
+                    "tie_tol": 1e-5}
+            if err > 1e-3 or flips != tied_flips or \
+                    len(log_cpu) != len(log_gpu) or not log_cpu:
+                fail(f"moe parity: {line}")
+            lines.append(line)
+    finally:
+        moe._route = route
+    return lines
+
+
+# ---------------------------------------------------------------------
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2269,6 +2653,18 @@ def main() -> None:
     mla_train = train_full_width(torch, np, dev, args.seed, profile=True,
                                  cfg=mla_train_config(), phase="mla_train")
     emit({**mla_train, "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 17: deepseek-v2-lite as published (MLA + MoE), last: every
+    # earlier model, engine and pool is freed
+    moe_lines = []
+    for line in moe_serve(torch, np, dev, args.seed, smi):
+        emit({**line, "card": smi})
+        moe_lines.append(line)
+    for line in moe_parity(torch, np, dev, args.seed):
+        emit({**line, "card": smi})
+    moe_runs = {(ln["phase"], ln.get("drain_interval")): ln
+                for ln in moe_lines}
 
     # the training run's launches, each kernel timed at that run's shapes
     meta = {
@@ -2316,6 +2712,18 @@ def main() -> None:
                      trained / len(mla_train["iterations"])},
         "suffix_prefill": {"launches": mla_radix["runs"][0]["launches"][
             "paged_mla_verify_attention"]}}
+    # phase 17's launches on deepseek-v2-lite as published: decode at D 1
+    # and D 8, verify with spec on, suffix prefills (spec off) beside them
+    moe_launched = {
+        "paged_mla_decode_attention": {
+            f"moe_serve_d{d}": moe_runs["moe_serve", d]["launches"][
+                "paged_mla_decode_attention"] for d in (1, 8)},
+        "paged_mla_verify_attention": {
+            "moe_spec_serve": moe_runs["moe_spec_serve", 1]["launches"][
+                "paged_mla_verify_attention"],
+            "moe_radix_serve_suffix_prefill": moe_runs[
+                "moe_radix_serve", None]["runs"][0]["launches"][
+                "paged_mla_verify_attention"]}}
     for name, replaces, c, run, more in (
             ("paged_mla_decode_attention", 277, mla["decode_serve_bfloat16"],
              mla_srv, {"decode_long": mla["decode_long_bfloat16"],
@@ -2331,6 +2739,7 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/paged_mla_attention.cu",
             "replaces": f"src/repro/kernels/decode_attention.py:{replaces}",
             "launches": run["launches"][name],
+            "launches_deepseek_v2_lite_moe": moe_launched[name],
             **{key: c[key] for key in timing + plan_keys},
             **{case: {**{key: m[key] for key in timing + plan_keys},
                       **launched.get(case, {})}

@@ -1,9 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
 Only the architectures the port runs in some form are registered;
-``get_config`` raises on every other id of the JAX registry. The
-deepseek-v2-lite config is registered as published (MoE on), which the
-support matrix refuses; its attention is served with MoE off.
+``get_config`` raises on every other id of the JAX registry. The two MoE
+configs are registered as published: deepseek-v2-lite (MLA, 64 experts
+top-6, 2 shared, one dense prelude layer) is served at full width,
+qwen3-moe (GQA, 128 experts top-8) in its reduced form; the support
+matrix refuses training either.
 """
 from __future__ import annotations
 
@@ -12,8 +14,10 @@ import dataclasses
 from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _dsv2lite
 from repro_torch.configs.llama3p2_3b import CONFIG as _llama32
+from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG as _qwen3moe
 
-REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (_dsv2lite, _llama32)}
+REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (_dsv2lite, _llama32,
+                                                        _qwen3moe)}
 
 ARCH_IDS = tuple(REGISTRY)
 
@@ -48,7 +52,7 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
         param_dtype="float32",
         compute_dtype="float32",
     )
-    if cfg.num_experts > 0:
+    if cfg.is_moe:
         kw.update(
             num_experts=4,
             num_experts_per_tok=2,

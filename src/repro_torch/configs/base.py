@@ -2,8 +2,8 @@
 
 ``ModelConfig`` keeps the fields the ported paths read plus the capability
 fields the support matrix needs to reject what the port does not run yet
-(MoE, SSM/hybrid, enc-dec, VLM, sliding windows). ``RLConfig`` keeps the
-fields the periodic-async GRPO pipeline reads.
+(MoE training, SSM/hybrid, enc-dec, VLM, sliding windows). ``RLConfig``
+keeps the fields the periodic-async GRPO pipeline reads.
 """
 from __future__ import annotations
 
@@ -39,13 +39,15 @@ class ModelConfig:
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
 
-    # MoE (refused by engine_support while num_experts > 0) -----------------
+    # MoE (served; its training is refused by engine_support) --------------
     num_experts: int = 0                   # 0 -> dense FFN
     num_experts_per_tok: int = 0
     num_shared_experts: int = 0
     moe_d_ff: int = 0                      # per-expert hidden size
     first_k_dense: int = 0                 # leading dense layers (DeepSeek-V2)
     dense_d_ff: int = 0                    # d_ff of those dense layers
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001
 
     # other capability fields (read by engine_support) ----------------------
     ssm_state_size: int = 0
@@ -67,6 +69,10 @@ class ModelConfig:
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
 
 # ---------------------------------------------------------------------
 # Engine x family support matrix. Every engine construction site of the
@@ -85,21 +91,27 @@ _NOT_YET = "not ported to PyTorch yet (ROADMAP.md Queue 1)"
 
 def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
     """(supported, reason) for running ``cfg`` on ``engine`` in the port:
-    the paged engine serves the dense GQA family and MLA with MoE off, and
-    the spec plane, the prefix plane and training (the ``"train"`` plane,
-    which ``build_pipeline`` asks) ride on it for both; every other family
-    waits for later slices."""
+    the paged engine serves GQA and MLA attention, each with a dense or a
+    MoE feed-forward; the spec plane and the prefix plane ride on it for
+    all four, and training (the ``"train"`` plane, which ``build_pipeline``
+    asks) for the dense two; every other family waits for later slices."""
     if engine in _PLANES:
         ok, reason = engine_support(cfg, "paged")
         if not ok:
             return ok, reason
+        moe = " (MoE routed per forward, as in the JAX engine)" \
+            if cfg.is_moe else ""
         if engine == SPEC_PLANE:
             return True, ("a rejected draft's speculative pages roll back "
-                          "to the freelist")
+                          "to the freelist" + moe)
         if engine == PREFIX_PLANE:
             kind = "MLA latent" if cfg.use_mla else "K/V"
             return True, (f"cached {kind} prompt pages are shared across "
-                          "requests")
+                          "requests" + moe)
+        if cfg.is_moe:
+            return False, ("MoE training needs the router's auxiliary "
+                           "load-balance loss in the grad step, which is "
+                           + _NOT_YET)
         if cfg.use_mla:
             return True, ("MLA's expanded attention trains through "
                           "autograd, as the JAX package's does")
@@ -114,13 +126,12 @@ def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
         return False, "SSM/hybrid recurrent state is " + _NOT_YET
     if cfg.is_encoder_decoder or cfg.vision_prefix_len:
         return False, "enc-dec and VLM prefixes are " + _NOT_YET
-    if cfg.num_experts > 0:
-        return False, "MoE feed-forward is " + _NOT_YET
     if cfg.sliding_window is not None:
         return False, ("sliding-window page reclamation is " + _NOT_YET)
+    ffn = "MoE" if cfg.is_moe else "dense"
     if cfg.use_mla:
-        return True, "pages hold (ckv, kr) latent rows (MLA, MoE off)"
-    return True, "pages hold per-head K/V rows (dense GQA)"
+        return True, f"pages hold (ckv, kr) latent rows (MLA, {ffn} FFN)"
+    return True, f"pages hold per-head K/V rows (GQA, {ffn} FFN)"
 
 
 def require_engine_support(cfg: ModelConfig, engine: str) -> None:

@@ -4,8 +4,9 @@
 vocab=102400, 64 routed experts top-6 + 2 shared, first layer dense
 (d_ff=10944). MLA: qk_nope=128, qk_rope=64, v_head=128 (no q-LoRA in lite).
 
-The port serves its attention with MoE off (``mla_dense`` in the README);
-with MoE on, ``engine_support`` refuses it.
+The port serves it as published (MoE on); ``mla_dense`` in the README is
+the same model with its six MoE fields zeroed, which the port also trains.
+``engine_support`` refuses training with MoE on.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -70,6 +70,17 @@ Two planes layer on the pool:
     route (``_warm_prefill``), and inserts the complete prompt pages back;
     idle cached pages are LRU-evicted by the admission gate on a deficit.
 
+A MoE config's layers route each forward's tokens with a capacity sized
+from that forward's token count (``models/moe.py``), as in the JAX
+engine: a decode step routes all ``num_slots`` rows (idle ones decode
+PAD), a verify step B x (k + 1) tokens, a radix suffix prefill its
+bucketed block, a cold prefill ``n_prompt_pages x page`` tokens. Where an
+expert overflows, a token's output depends on the other tokens of its
+forward, so MoE tokens are held to the JAX engine at the same slots, D
+and spec settings; the engine's other invariances (slot count, D, warm
+== cold, spec greedy == plain greedy) hold for MoE only where nothing is
+dropped.
+
 Sliding windows are refused at construction (``require_engine_support``).
 """
 from __future__ import annotations
@@ -455,8 +466,13 @@ class PagedGroupEngine:
 
         The temporary cache spans the prompt's own pages, not
         ``max_prompt_len`` (the JAX engine pads to the maximum to keep one
-        jit trace): real tokens never see padding (segment -1), so the
-        result is the same and a short prompt costs only its own length."""
+        jit trace), so a short prompt costs only its own length. Attention
+        is unchanged by that: real tokens never see padding (segment -1).
+        A MoE layer is not: its expert capacity grows with the forward's
+        token count, so it is sized from the JAX engine's padded length
+        (``capacity_tokens``). Padding is routed after every real token,
+        so it takes no capacity a real token would have had, and the real
+        tokens keep exactly the choices the JAX engine keeps."""
         cfg = self.cfg
         S = row.shape[1]
         ar = torch.arange(S, dtype=torch.int32, device=self.device)[None]
@@ -465,7 +481,9 @@ class PagedGroupEngine:
         segments = torch.where(real, 0, -1).to(torch.int32)
         tmp = init_caches(cfg, 1, S, device=self.device)
         h, tmp = forward_hidden(params, cfg, row, positions=positions,
-                                segments=segments, caches=tmp, cache_offset=0)
+                                segments=segments, caches=tmp, cache_offset=0,
+                                capacity_tokens=self.n_prompt_pages
+                                * self.page)
         logits = h[0, length - 1].float() @ self._w_head
         n_pp = dest_pages.shape[0]
         pools, t = caches["layers"]["kv"], tmp["layers"]["kv"]
@@ -621,7 +639,7 @@ class PagedGroupEngine:
 
     # -- host API -----------------------------------------------------------
 
-    def set_params(self, params) -> dict:
+    def set_params(self, params, *, adopt: bool = False) -> dict:
         """Swap weights (iteration-boundary sync). Must be quiescent.
         Returns the tree the engine decodes with.
 
@@ -635,7 +653,11 @@ class PagedGroupEngine:
         (the trainer's policy, the reference model). A caller that hands
         the weights over keeps the returned tree instead of its own, so the
         card holds them once (the weight-plane's flip does; the serve entry
-        points drop theirs).
+        points drop theirs). ``adopt=True`` at the first call hands them
+        over without the clone: the engine decodes with the caller's
+        tensors, which nothing else may write but a later ``set_params``
+        (a model whose weights fill half the card cannot be cloned
+        twice).
 
         The radix tree is dropped: its pages hold K/V written under the
         previous weights, and a warm admission under the new ones would
@@ -656,13 +678,13 @@ class PagedGroupEngine:
                     self.radix.pages())
                 self.radix = RadixCache(self.page, self.alloc)
             if self.stream is None:
-                return self._load_params(params)
+                return self._load_params(params, adopt)
             caller = torch.cuda.current_stream(self.device)
             # params were written on the caller's stream (the trainer's,
             # the weight-plane's unpack): the engine reads them after it
             self.stream.wait_stream(caller)
             with torch.cuda.stream(self.stream):
-                own = self._load_params(params)
+                own = self._load_params(params, adopt)
             # the caller may free params once this returns (the store drops
             # a landed tree): no reuse of their memory before the copy ran
             for leaf in _tree_leaves(params):
@@ -671,7 +693,7 @@ class PagedGroupEngine:
             caller.wait_stream(self.stream)
             return own
 
-    def _load_params(self, params) -> dict:
+    def _load_params(self, params, adopt: bool) -> dict:
         """``set_params``' device work, on the engine's stream on the
         card: the copy into the engine's tensors, or at the first call the
         clone, the pool and the graph."""
@@ -684,7 +706,7 @@ class PagedGroupEngine:
             return self.params
         first = self.params is None
         self.params = (_tree_clone(params) if self.device.type == "cuda"
-                       else params)
+                       and not adopt else params)
         # f32 LM head, as the JAX engine computes next-token logits: a
         # view of f32 weights, an f32 copy of bf16 ones (1.5 GB at
         # llama3.2-3b width)

@@ -1,11 +1,16 @@
-"""Decoder-only LM with a SwiGLU FFN in every layer and GQA or MLA
-attention: parameter layout, init, block and whole-model forward, and the
-cache constructors.
+"""Decoder-only LM with GQA or MLA attention and a SwiGLU or MoE
+feed-forward: parameter layout, init, block and whole-model forward, and
+the cache constructors.
 
 Parameters are a nested dict with the JAX package's layout: every layer
-leaf is stacked with a leading L axis (``layers``), beside ``embed`` and
-``final_norm``. The forward loops over the L layers in Python (PyTorch
-runs eagerly; there is no trace whose size depth would set).
+leaf is stacked with a leading axis (``layers``), beside ``embed`` and
+``final_norm``. A MoE config's leading ``first_k_dense`` layers (DeepSeek-V2's
+dense prelude, with ``dense_d_ff``) are stacked the same way under
+``prelude``, where the JAX package keeps a list of them, and run before the
+``layers`` body; the MoE layers hold ``moe`` in place of ``mlp``. The
+forward loops over the layers in Python (PyTorch runs eagerly; there is no
+trace whose size depth would set). Caches and the paged pool are one stack
+over all ``num_layers``, the prelude's first, indexed by absolute layer.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from repro_torch.models.attention import (DenseCacheBackend,
                                           PagedCacheBackend, attention)
 from repro_torch.models.layers import (dense_init, dtype_of, embed, mlp,
                                        rmsnorm)
+from repro_torch.models.moe import moe_ffn, moe_shapes
 
 
 def _attn_shapes(cfg: ModelConfig) -> dict:
@@ -37,31 +43,53 @@ def _attn_shapes(cfg: ModelConfig) -> dict:
             "wo": (H * hd, d)}
 
 
+def num_prelude(cfg: ModelConfig) -> int:
+    """Leading dense layers before the MoE body (0 without MoE)."""
+    return cfg.first_k_dense if cfg.is_moe else 0
+
+
+def _block_shapes(cfg: ModelConfig, *, moe: bool, d_ff: int) -> dict:
+    d = cfg.d_model
+    b = {"ln1": {"scale": (d,)}, "attn": _attn_shapes(cfg),
+         "ln2": {"scale": (d,)}}
+    if moe:
+        b["moe"] = moe_shapes(cfg)
+    else:
+        b["mlp"] = {"w_gate": (d, d_ff), "w_up": (d, d_ff),
+                    "w_down": (d_ff, d)}
+    return b
+
+
+def _stack(n: int, shapes: dict) -> dict:
+    return {k: _stack(n, v) if isinstance(v, dict) else (n,) + v
+            for k, v in shapes.items()}
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes — one source for ``init_model`` and
     ``convert``'s checks."""
-    d, L, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
+    d = cfg.d_model
+    n_pre = num_prelude(cfg)
     embed_p = {"embedding": (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         embed_p["lm_head"] = (d, cfg.vocab_size)
-    return {
-        "embed": embed_p,
-        "final_norm": {"scale": (d,)},
-        "layers": {
-            "ln1": {"scale": (L, d)},
-            "attn": {k: (L,) + v for k, v in _attn_shapes(cfg).items()},
-            "ln2": {"scale": (L, d)},
-            "mlp": {"w_gate": (L, d, ff), "w_up": (L, d, ff),
-                    "w_down": (L, ff, d)},
-        },
-    }
+    shapes = {"embed": embed_p, "final_norm": {"scale": (d,)}}
+    if n_pre:
+        shapes["prelude"] = _stack(n_pre, _block_shapes(
+            cfg, moe=False, d_ff=cfg.dense_d_ff or cfg.d_ff))
+    shapes["layers"] = _stack(cfg.num_layers - n_pre, _block_shapes(
+        cfg, moe=cfg.is_moe, d_ff=cfg.d_ff))
+    return shapes
 
 
 def init_model(cfg: ModelConfig, *, seed: int, device) -> dict:
     """Random weights made directly on ``device`` from one seeded
     generator: norms (MLA's ``ckv_norm`` too) are ones, the embedding
     N(0, 0.02), every projection a truncated-normal fan-in init (fan-in =
-    the input axis)."""
+    the input axis, the second to last of a layer's leaf). The MoE router
+    is f32 whatever ``param_dtype`` is. A stacked leaf is drawn one layer
+    at a time into the leaf itself: a whole f32 draw of deepseek-v2-lite's
+    stacked expert leaf would take 19 GB, twice."""
     dt = dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -71,12 +99,20 @@ def init_model(cfg: ModelConfig, *, seed: int, device) -> dict:
         if name == "embedding":
             return (torch.randn(shape, generator=gen, device=device)
                     * 0.02).to(dt)
-        return dense_init(shape, in_axis=1 if stacked else 0, dtype=dt,
-                          device=device, generator=gen)
+        leaf_dt = torch.float32 if name == "router" else dt
+        if not stacked:
+            return dense_init(shape, in_axis=len(shape) - 2, dtype=leaf_dt,
+                              device=device, generator=gen)
+        w = torch.empty(shape, dtype=leaf_dt, device=device)
+        for i in range(shape[0]):
+            w[i] = dense_init(shape[1:], in_axis=len(shape) - 3,
+                              dtype=leaf_dt, device=device, generator=gen)
+        return w
 
     def walk(tree: dict, stacked: bool) -> dict:
-        return {k: walk(v, stacked or k == "layers") if isinstance(v, dict)
-                else make(k, v, stacked) for k, v in tree.items()}
+        return {k: walk(v, stacked or k in ("layers", "prelude"))
+                if isinstance(v, dict) else make(k, v, stacked)
+                for k, v in tree.items()}
 
     return walk(param_shapes(cfg), False)
 
@@ -90,15 +126,27 @@ def layer(tree, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def blocks(params: dict, cfg: ModelConfig):
+    """Each layer's parameters in forward order: the dense prelude's, then
+    the body's (the index into the caches is the position in this
+    sequence)."""
+    n_pre = num_prelude(cfg)
+    for i in range(n_pre):
+        yield layer(params["prelude"], i)
+    for i in range(cfg.num_layers - n_pre):
+        yield layer(params["layers"], i)
+
+
 def _block_hidden(bp: dict, cfg: ModelConfig, x, positions, segments):
     return block_forward(bp, cfg, x, positions, segments)[0]
 
 
 def block_forward(bp: dict, cfg: ModelConfig, x, positions, segments, *,
                   cache: Optional[dict] = None, cache_offset=None,
-                  page_table=None):
-    """Pre-norm attention (GQA or MLA) + SwiGLU block. Returns (x_out,
-    cache)."""
+                  page_table=None, capacity_tokens: Optional[int] = None):
+    """Pre-norm attention (GQA or MLA) + SwiGLU or MoE block. Returns
+    (x_out, cache). ``capacity_tokens`` sizes a MoE layer's expert
+    capacity (``moe.moe_ffn``)."""
     h = rmsnorm(bp["ln1"]["scale"], x, cfg.norm_eps)
     attn_out, kv = attention(
         bp["attn"], cfg, h, positions, segments,
@@ -106,21 +154,27 @@ def block_forward(bp: dict, cfg: ModelConfig, x, positions, segments, *,
         cache_offset=cache_offset, page_table=page_table)
     x = x + attn_out
     h2 = rmsnorm(bp["ln2"]["scale"], x, cfg.norm_eps)
-    x = x + mlp(bp["mlp"], h2)
+    if "moe" in bp:
+        x = x + moe_ffn(bp["moe"], cfg, h2,
+                        capacity_tokens=capacity_tokens)[0]
+    else:
+        x = x + mlp(bp["mlp"], h2)
     return x, None if kv is None else {"kv": kv}
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                    positions=None, segments=None, caches=None,
-                   cache_offset=None, page_table=None):
+                   cache_offset=None, page_table=None,
+                   capacity_tokens: Optional[int] = None):
     """Token ids (B, S) -> final hidden states (B, S, d).
 
     ``caches`` (dense prefill caches or the paged pool, stacked over
     layers) are written in place. A training forward (autograd recording,
     no caches) checkpoints each layer when ``cfg.remat``, as
     ``jax.checkpoint`` does in the JAX package: the backward recomputes the
-    layer's forward instead of keeping its activations. Returns (hidden,
-    caches)."""
+    layer's forward instead of keeping its activations. MoE layers size
+    their expert capacity from ``capacity_tokens`` when given, else from
+    the call's B x S tokens. Returns (hidden, caches)."""
     B, S = tokens.shape
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     if positions is None:
@@ -131,17 +185,17 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = positions.to(torch.int32).contiguous()
     segments = segments.to(torch.int32).contiguous()
     if cfg.remat and caches is None and torch.is_grad_enabled():
-        for i in range(cfg.num_layers):
+        for bp in blocks(params, cfg):
             # the block draws no random numbers: no RNG state to keep
-            x = checkpoint(_block_hidden, layer(params["layers"], i), cfg, x,
-                           positions, segments, use_reentrant=False,
-                           preserve_rng_state=False)
+            x = checkpoint(_block_hidden, bp, cfg, x, positions, segments,
+                           use_reentrant=False, preserve_rng_state=False)
         return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), caches
-    for i in range(cfg.num_layers):
+    for i, bp in enumerate(blocks(params, cfg)):
         x, _ = block_forward(
-            layer(params["layers"], i), cfg, x, positions, segments,
+            bp, cfg, x, positions, segments,
             cache=None if caches is None else layer(caches["layers"], i),
-            cache_offset=cache_offset, page_table=page_table)
+            cache_offset=cache_offset, page_table=page_table,
+            capacity_tokens=capacity_tokens)
     return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), caches
 
 

@@ -724,6 +724,34 @@ def test_engine_owns_its_weights_on_the_card(dev):
         assert torch.equal(theirs.cpu(), ref)
 
 
+def test_engine_adopts_a_handed_over_tree(dev):
+    """``set_params(adopt=True)`` keeps the caller's tensors (no clone):
+    the engine's tree is the caller's, a later set_params copies into
+    them, and the greedy tokens equal those of an engine that cloned."""
+    from repro_torch.launch.serve import build_paged_engine
+    cfg, p_cpu, p_gpu = _reduced_llama(dev)
+    prompts = [np.arange(3, 3 + n, dtype=np.int32) for n in (4, 9, 17)]
+    kw = dict(max_prompt_len=24, max_new=8, num_slots=2, page_size=8,
+              temperature=0.0, device=dev)
+    cloned = build_paged_engine(cfg, **kw)
+    want = cloned.serve(p_gpu, prompts, 0)
+    mine = _to_dev(p_cpu, dev)
+    eng = build_paged_engine(cfg, **kw)
+    assert eng.set_params(mine, adopt=True) is mine
+    got = eng.serve(mine, prompts, 0)
+    assert [c.response_ids.tolist() for c in got] == \
+        [c.response_ids.tolist() for c in want]
+    ptrs = [t.data_ptr() for t in _leaves(mine)]
+    new = _to_dev(p_cpu, dev)
+    for t in _leaves(new):
+        t.mul_(2)
+    assert eng.set_params(new) is mine
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in _leaves(mine)] == ptrs
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(mine),
+                                                 _leaves(new)))
+
+
 def _leaves(tree):
     for k in sorted(tree):
         v = tree[k]
@@ -1100,3 +1128,104 @@ def test_mla_training_engine_graph_matches_plain(dev):
         assert torch.equal(a.response_ids, b.response_ids)
         torch.testing.assert_close(a.response_logprobs, b.response_logprobs,
                                    atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------
+# MoE: deepseek-v2-lite as published and qwen3-moe
+# ---------------------------------------------------------------------
+
+def _moe_layer(dev, cfg, gen):
+    """One layer's MoE leaves on the card, bf16 (the router f32), fan-in
+    scaled normals; the router's first row favours experts 0..K-1."""
+    from repro_torch.models import moe
+
+    def make(shapes):
+        out = {}
+        for k, v in shapes.items():
+            if isinstance(v, dict):
+                out[k] = make(v)
+                continue
+            w = torch.randn(v, generator=gen, device=dev) * v[-2] ** -0.5
+            out[k] = w if k == "router" else w.to(torch.bfloat16)
+        return out
+    p = make(moe.moe_shapes(cfg))
+    p["router"][0] = -1.0
+    p["router"][0, :cfg.num_experts_per_tok] = 2.0
+    return p
+
+
+@pytest.mark.parametrize("B,S", [(4, 1), (4, 5)])
+def test_moe_step_graph_matches_eager(dev, B, S):
+    """``moe_ffn`` at deepseek-v2-lite's expert shapes (E 64, K 6, d 2048,
+    ff 1408, 2 shared; bf16) captured in a CUDA graph at the decode (4
+    tokens) and verify (4 x 5) shapes: every replay on fresh tokens is
+    bitwise the eager call's output on them, and on tokens that share a
+    large first coordinate (experts 0..5 overflow at the verify shape) the
+    dropped pairs are the eager call's too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-lite-16b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = _moe_layer(dev, cfg, gen)
+    x = torch.zeros((B, S, cfg.d_model), dtype=torch.bfloat16, device=dev)
+    moe.moe_ffn(p, cfg, x)                       # warm-up
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y, _ = moe.moe_ffn(p, cfg, x)
+    C = moe.capacity(B * S, cfg)
+    for skew in (0.0, 0.0, 4.0):
+        new = torch.randn(x.shape, generator=gen, device=dev) * 0.3
+        new[..., 0] += skew
+        x.copy_(new.to(torch.bfloat16))
+        g.replay()
+        torch.cuda.synchronize()
+        want, _ = moe.moe_ffn(p, cfg, x.clone())
+        assert torch.equal(y, want)
+        _, ti, _ = moe._route(p, cfg, x.reshape(B * S, -1), False)
+        _, keep = moe._dispatch_slots(ti, cfg.num_experts, C)
+        if skew and B * S > C:
+            assert not bool(keep.all())
+    del g
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_reduced_moe_engine_on_card_matches_cpu(dev, arch):
+    """Greedy serving of the reduced MoE config (f32, 4 experts top-2),
+    spec off, spec on and at D 3: identical tokens on the card (the
+    captured steps, the kernels) and on the CPU (plain versions), and
+    each paged kernel launched once a layer per step (the SPA kernel once
+    a layer per prefill for qwen3's GQA; MLA's prefill is plain)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine, serve_paged
+    from repro_torch.models import init
+    cfg = reduced_config(get_config(arch))
+    p_cpu = init(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(7)
+    prompts = []
+    for n in (5, 19, 33):
+        base = rng.randint(3, 500, size=(n // 2 + 1,))
+        prompts.append(np.concatenate([base, base])[:n].astype(np.int32))
+    kw = dict(max_prompt_len=40, max_new=8, num_slots=2, page_size=8,
+              temperature=0.0, seed=0)
+    fam = "paged_mla_" if cfg.use_mla else "paged_"
+    L = cfg.num_layers
+    for over in ({}, {"spec_k": 3}, {"drain_interval": 3}):
+        eng = build_paged_engine(cfg, device=dev, **over,
+                                 **{k: v for k, v in kw.items()
+                                    if k != "seed"})
+        p_gpu = eng.set_params(_to_dev(p_cpu, dev))   # capture, outside
+        reset_launch_counts()
+        gpu = eng.serve(p_gpu, prompts, kw["seed"] + 1)  # as serve_paged
+        torch.cuda.synchronize()
+        step = fam + ("verify" if over.get("spec_k") else "decode") \
+            + "_attention"
+        assert LAUNCHES[step] == L * eng.decode_steps > 0
+        assert LAUNCHES["spa_attention"] == \
+            (0 if cfg.use_mla else L * len(prompts))
+        cpu, _ = serve_paged(cfg, prompts, device="cpu", params=p_cpu,
+                             **kw, **over)
+        assert [c.response_ids.tolist() for c in gpu] == \
+            [c.response_ids.tolist() for c in cpu]

@@ -45,12 +45,15 @@ def test_port_scan_covers_the_package():
             "decode_attention.py", "chip_smoke.py", "train.py",
             "scheduler.py", "service.py", "transfer_cast.py", "grpo.py",
             "radix.py", "verify.py", "draft.py", "sampler.py",
-            "deepseek_v2_lite_16b.py", "attention.py"} <= names
+            "deepseek_v2_lite_16b.py", "attention.py", "moe.py",
+            "qwen3_moe_235b_a22b.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"src/repro_torch/spec/__init__.py",
             "src/repro_torch/core/radix.py",
             "src/repro_torch/configs/deepseek_v2_lite_16b.py",
-            "src/repro_torch/models/attention.py"} <= rel
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/configs/qwen3_moe_235b_a22b.py"} <= rel
     assert (ROOT / "src/repro_torch/kernels/csrc/paged_mla_attention.cu"
             ).is_file()
 
@@ -77,6 +80,8 @@ def test_entry_modules_import_with_jax_and_repro_blocked():
         "import repro_torch.core.radix\n"
         "from repro_torch.launch.serve import serve_shared, serving_stats\n"
         "from repro_torch.configs.deepseek_v2_lite_16b import CONFIG\n"
+        "from repro_torch.configs.qwen3_moe_235b_a22b import CONFIG\n"
+        "from repro_torch.models.moe import moe_ffn\n"
         "from repro_torch.models.attention import mla_attention\n"
         "from repro_torch.kernels.decode_attention import (\n"
         "    paged_mla_decode_attention, paged_mla_verify_attention)\n"
