@@ -176,17 +176,23 @@ The profile phases also time each replay with CUDA events
      as published (27 layers: 1 dense prelude layer, d_ff 10944, and 26
      MoE layers of 64 experts top-6 with 2 shared, moe_d_ff 1408; MLA;
      vocab 102400; 15.7 B parameters, random bf16 weights made on the card
-     from --seed, the router in f32), held on the card once (every
-     engine adopts the one tree: set_params(adopt=True); phases 11, 12,
-     9 and 15 now adopt theirs too). (d) moe_profile: phase
-     4's two windows of 8 decode steps at 4 busy slots, with the MoE
-     layers' own device time at the decode shape (one CUDA graph of the 26
-     layers' moe_ffn) as a share of the replayed step, and the step's
-     weight-read bound (every leaf once, the f32 LM head, B embedding rows:
-     the static (E, C) dispatch reads every expert of every MoE layer);
-     then, with a test-side counter of the (token, choice) pairs each
-     expert's capacity drops (per forward kind: prefill, decode, verify;
-     its adds run inside the captured steps), (a) moe_serve: phase 11's
+     from --seed, the router in f32), handed from engine to engine as the
+     serve entry points hand theirs over (HeldTree: each keeps the tree
+     set_params returns and drops its own, so the card holds the weights
+     once, twice during a clone; phases 9, 11, 12 and 15 hand theirs on
+     the same way). (d) moe_profile: phase 4's two windows of 8 decode
+     steps at 4 busy slots, with the MoE layers' own device time at the
+     decode shape (one CUDA graph of the 26 layers' moe_ffn) as a share of
+     the replayed step, and the step's weight-read bound: the bytes its
+     routing needs (every non-expert leaf once, the f32 LM head, B
+     embedding rows, and the distinct experts the window's tokens chose,
+     counted by replaying the window's requests on a second engine with
+     the counter below), beside the static (E, C) dispatch's bytes, which
+     read every expert of every MoE layer; then, with a test-side counter
+     of the (token, choice) pairs each expert's capacity drops and of the
+     distinct experts each call routes to (per forward kind: prefill,
+     decode, verify; its adds run inside the captured steps), (a)
+     moe_serve: phase 11's
      workload at D 1 and at D 8 (MLA decode launches 27 x decode steps,
      all of them replays; every other kernel 0; every page back; finite
      logits), (b) moe_spec_serve: spec decode (MLA verify = 27 x verify
@@ -198,8 +204,10 @@ The profile phases also time each replay with CUDA events
      f32) on the card against the CPU, greedy: prefill logits within 1e-3,
      the prefill's chosen experts identical (a flip passes only where the
      K-th and (K+1)-th probabilities are within 1e-5; the line counts
-     them), tokens identical with spec off, spec on and at D 3 (a run is
-     excused only where the CPU's routing came within 1e-5 of a tie), and
+     them), tokens identical with spec off, spec on and at D 3 (a run's
+     tokens are excused only where the first difference between the
+     card's and the CPU's records of its forwards, input tokens and chosen
+     experts in call order, is a routing flip at such a tie), and
      the SPA, paged decode and paged verify kernels (qwen3-moe) or the MLA
      pair (deepseek) launched by their formulas.
 
@@ -1186,12 +1194,29 @@ PAGED_KERNELS = {False: ("paged_verify_attention", "paged_decode_attention"),
 TTFT_GAP_S = 0.25         # arrivals of the TTFT runs: one request at a time
 
 
-def radix_ttft(torch, np, dev, cfg, params, prompts, seed: int):
+class HeldTree:
+    """A phase's one tree of weights, handed from engine to engine as the
+    serve entry points hand theirs over: ``load(eng)`` gives the tree to
+    ``eng.set_params`` and keeps the tree it returns (on the card the
+    engine's clone) in place of the one it gave. So long as the caller
+    holds the tree only here and drops each engine before loading the
+    next, the card holds the weights once, and twice only during a
+    clone."""
+
+    def __init__(self, tree: dict):
+        self.tree = tree
+
+    def load(self, eng) -> dict:
+        self.tree = eng.set_params(self.tree)
+        return self.tree
+
+
+def radix_ttft(torch, np, dev, cfg, weights, prompts, seed: int):
     """TTFT of the shared-system requests arriving one every TTFT_GAP_S
     (each prefilled alone, spec off) through RequestDriver, on an engine
     with the radix cache and on one without: request 0 is cold on both,
     requests 1..7 are warm (suffix prefill) on the first and cold on the
-    second."""
+    second. ``weights``: a ``HeldTree``, loaded into each engine."""
     from repro_torch.launch.serve import (build_paged_engine,
                                           compute_latency_metrics,
                                           serve_requests)
@@ -1202,9 +1227,9 @@ def radix_ttft(torch, np, dev, cfg, params, prompts, seed: int):
     out = {"gap_s": TTFT_GAP_S}
     for name, prefix in (("cold", False), ("warm", True)):
         eng = build_paged_engine(cfg, prefix_cache=prefix, device=dev, **kw)
-        # the graph's capture, outside; the engine adopts the weights
-        eng.set_params(params, adopt=True)
-        reqs, _, _ = serve_requests(cfg, prompts, params=params, engine=eng,
+        weights.load(eng)                 # the graph's capture, outside
+        reqs, _, _ = serve_requests(cfg, prompts, params=weights.tree,
+                                    engine=eng,
                                     seed=seed, arrivals=arrivals,
                                     prefix_cache=prefix, **kw)
         torch.cuda.synchronize()
@@ -1219,6 +1244,7 @@ def radix_ttft(torch, np, dev, cfg, params, prompts, seed: int):
                      "warm_prefills": eng.warm_prefills,
                      "cold_prefills": eng.prefills}
         del eng
+        gc.collect()                      # its pool before the next's
     if out["warm"]["warm_prefills"] != len(prompts) - 1 or \
             out["cold"]["cold_prefills"] != len(prompts):
         fail(f"radix ttft: expected {len(prompts) - 1} warm prefills with "
@@ -1226,13 +1252,12 @@ def radix_ttft(torch, np, dev, cfg, params, prompts, seed: int):
     return out
 
 
-def radix_serve(torch, np, dev, cfg, params, seed: int,
+def radix_serve(torch, np, dev, cfg, weights, seed: int,
                 phase: str = "radix_serve", drops=None):
     """serve_shared over a 512-token system prompt and 8 suffixes, spec
     off and then on, and the warm against cold TTFT (``radix_ttft``).
-    ``drops``: a MoE drop counter's ``take`` (phase 17), read into each
-    run's line. Each engine adopts ``params`` (no clone: phase 17's
-    weights fill more than a third of the card)."""
+    ``weights``: a ``HeldTree``, loaded into each engine. ``drops``: a MoE
+    drop counter's ``take`` (phase 17), read into each run's line."""
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.serve import build_paged_engine, serve_shared
     rng = np.random.RandomState(seed + 9)
@@ -1253,7 +1278,7 @@ def radix_serve(torch, np, dev, cfg, params, seed: int,
                                  prefix_cache=True, device=dev)
         # the first set_params captures the step's graph (its warm-up
         # launches are not the serving run's)
-        eng.set_params(params, adopt=True)
+        weights.load(eng)
         torch.cuda.synchronize()
         if drops is not None:
             drops()                       # the graph's warm-up routed too
@@ -1261,8 +1286,8 @@ def radix_serve(torch, np, dev, cfg, params, seed: int,
         t0 = time.perf_counter()
         done, stats = serve_shared(cfg, system, suffixes, max_prompt_len=full,
                                    max_new=32, page_size=16, temperature=0.7,
-                                   seed=seed, spec_k=spec_k, params=params,
-                                   engine=eng)
+                                   seed=seed, spec_k=spec_k,
+                                   params=weights.tree, engine=eng)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
@@ -1314,7 +1339,8 @@ def radix_serve(torch, np, dev, cfg, params, seed: int,
         if not bool(torch.isfinite(eng.logits).all()):
             fail(f"{phase}: non-finite logits after serving")
         del eng
-    ttft = radix_ttft(torch, np, dev, cfg, params,
+        gc.collect()                      # its pool before the next's
+    ttft = radix_ttft(torch, np, dev, cfg, weights,
                       [np.concatenate([system, sfx]) for sfx in suffixes],
                       seed)
     return {"phase": phase, "arch": cfg.name, "layers": L,
@@ -1476,13 +1502,13 @@ def phase11_prompts(np, cfg, seed: int):
             for n in lens]
 
 
-def serve_run(torch, np, dev, cfg, params, prompts, seed: int, *,
+def serve_run(torch, np, dev, cfg, weights, prompts, seed: int, *,
               phase: str, spec_k: int = 0, drain: int = 1, counter=None):
     """An MLA model (mla_dense or deepseek-v2-lite as published) serves
     ``prompts`` through RequestDriver on a fresh engine (32 new tokens, 4
     slots, page 16, temperature 0.7; D ``drain``, spec k ``spec_k``),
-    after a warm-up request. The engine adopts ``params`` (no clone: the
-    weights stay on the card once). Checks launches (the MLA decode
+    after a warm-up request. ``weights``: a ``HeldTree``, loaded into the
+    engine. Checks launches (the MLA decode
     kernel, the verify kernel with spec, L x steps, all of them replays;
     every other kernel 0), every page back, the tokens, finite logits and,
     with a MoE drop ``counter``, its forwards by kind. Returns (engine,
@@ -1493,7 +1519,7 @@ def serve_run(torch, np, dev, cfg, params, prompts, seed: int, *,
               temperature=0.7, spec_k=spec_k)
     eng = build_paged_engine(cfg, device=dev, drain_interval=drain, **kw)
     t0 = time.perf_counter()
-    eng.set_params(params, adopt=True)         # pool, capture
+    params = weights.load(eng)                 # clone, pool, capture
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     serve_requests(cfg, prompts[:1], params=params, engine=eng, seed=seed,
@@ -1565,28 +1591,30 @@ def serve_run(torch, np, dev, cfg, params, prompts, seed: int, *,
     return eng, out
 
 
-def mla_serve(torch, np, dev, seed: int, spec_k: int, params=None):
+def mla_serve(torch, np, dev, seed: int, spec_k: int, weights=None):
     """Full-width mla_dense through RequestDriver and the paged engine,
-    spec decode off (phase 11) or on (phase 12). Returns (params, engine,
+    spec decode off (phase 11) or on (phase 12). ``weights``: a
+    ``HeldTree`` (made from --seed when None). Returns (weights, engine,
     prompts, result)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init
     cfg = mla_dense_config()
     torch.cuda.reset_peak_memory_stats(dev)
     init_s = None
-    if params is None:
+    if weights is None:
         t0 = time.time()
-        params = init(cfg, seed=seed, device=dev)
+        weights = HeldTree(init(cfg, seed=seed, device=dev))
         torch.cuda.synchronize()
         init_s = time.time() - t0
     prompts = phase11_prompts(np, cfg, seed)
-    eng, out = serve_run(torch, np, dev, cfg, params, prompts, seed,
+    eng, out = serve_run(torch, np, dev, cfg, weights, prompts, seed,
                          phase="mla_spec_serve" if spec_k else "mla_serve",
                          spec_k=spec_k)
-    out.update(params=sum(t.numel() for t in _leaves(params)), init_s=init_s,
+    out.update(params=sum(t.numel() for t in _leaves(weights.tree)),
+               init_s=init_s,
                **{"llama3.2-3b_pool_bytes_per_token": _pool_bytes_per_token(
                    get_config("llama3.2-3b"))})
-    return params, eng, prompts, out
+    return weights, eng, prompts, out
 
 
 def mla_parity(torch, np, dev, seed: int):
@@ -2183,8 +2211,9 @@ MOE_KINDS = ("prefill", "decode", "verify")
 class DropCounter:
     """A test-side wrapper, not an engine feature: per forward kind
     (prefill: one row; decode: one token a row; verify: several tokens a
-    row), the MoE layer calls, the (token, choice) pairs routed and those
-    dropped past an expert's capacity, added up in device tensors. The adds
+    row), the MoE layer calls, the (token, choice) pairs routed, those
+    dropped past an expert's capacity, and the distinct experts each call
+    routed to (summed over calls), added up in device tensors. The adds
     run inside the engine's captured step, so the counter is installed
     before an engine's first ``set_params`` and every replay counts;
     ``take`` reads and zeroes the tensors in place (the graph holds their
@@ -2193,7 +2222,7 @@ class DropCounter:
     def __init__(self, torch, dev, moe_layers: int):
         from repro_torch.models import moe, transformer
         self.torch, self.moe_layers = torch, moe_layers
-        self.counts = {k: torch.zeros(3, dtype=torch.int64, device=dev)
+        self.counts = {k: torch.zeros(4, dtype=torch.int64, device=dev)
                        for k in MOE_KINDS}
         self._saved = (moe._dispatch_slots, transformer.moe_ffn)
         dispatch, ffn = self._saved
@@ -2206,6 +2235,8 @@ class DropCounter:
             c[0:1].add_(1)                       # scalars: no host copy
             c[1:2].add_(keep.numel())
             c[2:3].add_((~keep).sum())
+            used = torch.zeros((E,), dtype=torch.int64, device=top_i.device)
+            c[3:4].add_(used.index_fill_(0, top_i.reshape(-1), 1).sum())
             return slot, keep
 
         def classifying_ffn(params, cfg, x, **kw):
@@ -2224,21 +2255,25 @@ class DropCounter:
         self.torch.cuda.synchronize()
         out = {}
         for k, c in self.counts.items():
-            calls, pairs, dropped = c.tolist()
+            calls, pairs, dropped, experts = c.tolist()
             c.zero_()
             fwd = calls // self.moe_layers
             out[k] = {"forwards": fwd, "pairs": pairs,
                       "dropped_pairs": dropped,
-                      "dropped_per_forward": dropped / fwd if fwd else 0.0}
+                      "dropped_per_forward": dropped / fwd if fwd else 0.0,
+                      "distinct_experts_per_layer_call":
+                          experts / calls if calls else 0.0}
         self.torch.cuda.synchronize()
         return out
 
 
 def _step_weight_bytes(cfg, params, B: int) -> dict:
-    """Bytes of weights one decode step of B slots reads: every leaf once
-    but the embedding table (B rows) and the bf16 LM head, which the
-    engine replaces by its own f32 copy (d x V x 4); the MoE experts' part
-    beside it (the static (E, C) dispatch runs every expert)."""
+    """Bytes of weights one decode step of B slots reads under the static
+    (E, C) dispatch, which runs every expert: every leaf once but the
+    embedding table (B rows) and the bf16 LM head, which the engine
+    replaces by its own f32 copy (d x V x 4); the routed experts' part
+    beside it, and one expert's bytes (what a step that reads only the
+    experts it routes to reads of each)."""
     embed = params["embed"]["embedding"]
     total = B * embed.shape[1] * embed.element_size()
     total += cfg.d_model * cfg.vocab_size * 4
@@ -2249,8 +2284,38 @@ def _step_weight_bytes(cfg, params, B: int) -> dict:
     experts = sum(moe[k].numel() * moe[k].element_size()
                   for k in ("w_gate", "w_up", "w_down"))
     return {"step": total, "experts": experts,
+            "one_expert": experts // (moe["w_gate"].shape[0]
+                                      * cfg.num_experts),
             "moe_layers": sum(t.numel() * t.element_size()
                               for t in _leaves(moe))}
+
+
+def routed_experts(np, eng, prompts, seed: int, counter, kw: dict,
+                   steps: int = 8) -> dict:
+    """The routing of ``profile_decode``'s first window, replayed: the
+    same warm-up request, the same requests (keys, slots) and the same
+    decode steps, on an engine captured with the drop ``counter``; the
+    distinct experts its decode steps routed to, per MoE layer and per
+    step summed over the MoE layers."""
+    from repro_torch.launch.serve import serve_requests
+    serve_requests(eng.cfg, prompts[:1], params=eng.params, engine=eng,
+                   seed=seed, arrivals=np.zeros(1), **kw)
+    handles = [eng.submit(p, (seed, 1000 + i), max_new=kw["max_new"])
+               for i, p in enumerate(prompts[:eng.B])]
+    eng.step()              # admission + prefills (+ the first block)
+    counter.take()
+    n0 = eng.decode_steps
+    for _ in range(max(1, steps // eng.drain)):
+        eng.step()
+    got = counter.take()["decode"]
+    n = eng.decode_steps - n0
+    while eng.step():
+        pass
+    if not all(h.done() for h in handles) or got["forwards"] != n:
+        fail(f"routed window: {got} over {n} decode steps")
+    per_layer = got["distinct_experts_per_layer_call"]
+    return {"decode_steps": n, "distinct_experts_per_moe_layer": per_layer,
+            "distinct_experts_per_step": per_layer * counter.moe_layers}
 
 
 def moe_layers_ms(torch, cfg, params, dev, B: int = 4, reps: int = 5):
@@ -2290,9 +2355,10 @@ def moe_layers_ms(torch, cfg, params, dev, B: int = 4, reps: int = 5):
 def moe_serve(torch, np, dev, seed: int, smi: str):
     """Phase 17: full-width deepseek-v2-lite-16b as published through the
     paged engine: (d) a profiled decode window on an engine without the
-    drop counter, then with it (a) phase 11's workload at D 1 and D 8,
-    (b) spec decode, (c) phase 15's shared-system workload. Every engine
-    adopts the one tree of weights. Yields the result lines as they come."""
+    drop counter, then with it the window's routing replayed, (a) phase
+    11's workload at D 1 and D 8, (b) spec decode, (c) phase 15's
+    shared-system workload. The weights are one ``HeldTree``, handed from
+    engine to engine. Yields the result lines as they come."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_paged_engine, serve_requests
     from repro_torch.models import init
@@ -2304,59 +2370,146 @@ def moe_serve(torch, np, dev, seed: int, smi: str):
            "memory_allocated_gib": torch.cuda.memory_allocated(dev) / 2 ** 30}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    params = init(cfg, seed=seed, device=dev)
+    weights = HeldTree(init(cfg, seed=seed, device=dev))
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
-    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    weights = _step_weight_bytes(cfg, params, B=4)
+    n_params = sum(t.numel() for t in _leaves(weights.tree))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(weights.tree))
+    nbytes = _step_weight_bytes(cfg, weights.tree, B=4)
     prompts = phase11_prompts(np, cfg, seed)
     # (d) the profile, on an engine whose graph holds no counter
     kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
               temperature=0.7)
     eng = build_paged_engine(cfg, device=dev, **kw)
-    eng.set_params(params, adopt=True)
-    serve_requests(cfg, prompts[:1], params=params, engine=eng, seed=seed,
-                   arrivals=np.zeros(1), **kw)        # warm-up request
+    weights.load(eng)
+    serve_requests(cfg, prompts[:1], params=weights.tree, engine=eng,
+                   seed=seed, arrivals=np.zeros(1), **kw)  # warm-up request
     prof = profile_decode(torch, np, eng, prompts, seed,
                           kernels=MLA_PROFILE_KERNELS)
     del eng
     gc.collect()
-    moe_ms = moe_layers_ms(torch, cfg, params, dev)
-    step_ms = prof["replay_device_ms_per_step"]
-    bound_ms = weights["step"] / HBM_BYTES_PER_S * 1e3
-    prof.update({
-        "phase": "moe_profile", "arch": cfg.name, "params": n_params,
-        "param_bytes": param_bytes, "init_s": init_s,
-        "moe_layers": n_moe, "moe_layers_device_ms_per_step": moe_ms,
-        "moe_share_of_replay_step": moe_ms / step_ms,
-        "step_weight_read_bytes": weights["step"],
-        "expert_weight_bytes": weights["experts"],
-        "moe_layer_weight_bytes": weights["moe_layers"],
-        "step_weight_read_bound_ms": bound_ms,
-        "expert_read_bound_ms": weights["experts"] / HBM_BYTES_PER_S * 1e3,
-        "replay_step_over_bound": step_ms / bound_ms,
-        "mla_kernel_ms_per_step": sum(prof["kernel_ms_per_step"].values()),
-        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
-    yield prof
+    moe_ms = moe_layers_ms(torch, cfg, weights.tree, dev)
     counter = DropCounter(torch, dev, n_moe)
     try:
+        # the window's routing: the experts a step had to read
+        eng = build_paged_engine(cfg, device=dev, **kw)
+        weights.load(eng)
+        routed = routed_experts(np, eng, prompts, seed, counter, kw)
+        del eng
+        gc.collect()
+        step_ms = prof["replay_device_ms_per_step"]
+        static_ms = nbytes["step"] / HBM_BYTES_PER_S * 1e3
+        routed_bytes = (nbytes["step"] - nbytes["experts"]
+                        + routed["distinct_experts_per_step"]
+                        * nbytes["one_expert"])
+        routed_ms = routed_bytes / HBM_BYTES_PER_S * 1e3
+        prof.update({
+            "phase": "moe_profile", "arch": cfg.name, "params": n_params,
+            "param_bytes": param_bytes, "init_s": init_s,
+            "moe_layers": n_moe, "moe_layers_device_ms_per_step": moe_ms,
+            "moe_share_of_replay_step": moe_ms / step_ms,
+            "routed_window": routed,
+            # the step's bound: the weights its routing needs (the
+            # non-expert leaves, the experts its tokens chose)
+            "routed_weight_read_bytes": routed_bytes,
+            "routed_weight_read_bound_ms": routed_ms,
+            "replay_step_over_routed_bound": step_ms / routed_ms,
+            # what the static (E, C) dispatch reads: every expert
+            "static_dispatch_weight_bytes": nbytes["step"],
+            "static_dispatch_bound_ms": static_ms,
+            "replay_step_over_static_dispatch_bound": step_ms / static_ms,
+            "expert_weight_bytes": nbytes["experts"],
+            "one_expert_weight_bytes": nbytes["one_expert"],
+            "moe_layer_weight_bytes": nbytes["moe_layers"],
+            "expert_read_bound_ms": nbytes["experts"] / HBM_BYTES_PER_S * 1e3,
+            "mla_kernel_ms_per_step": sum(prof["kernel_ms_per_step"].values()),
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+        yield prof
         for phase, drain, spec_k in (("moe_serve", 1, 0), ("moe_serve", 8, 0),
                                      ("moe_spec_serve", 1, SPEC_K)):
             torch.cuda.reset_peak_memory_stats(dev)
-            eng, out = serve_run(torch, np, dev, cfg, params, prompts, seed,
+            eng, out = serve_run(torch, np, dev, cfg, weights, prompts, seed,
                                  phase=phase, spec_k=spec_k, drain=drain,
                                  counter=counter)
             del eng                 # its pool and head before the next's
             gc.collect()
             yield out
-        yield radix_serve(torch, np, dev, cfg, params, seed,
+        yield radix_serve(torch, np, dev, cfg, weights, seed,
                           phase="moe_radix_serve", drops=counter.take)
     finally:
         counter.remove()
-    del params
+    del weights
     gc.collect()
     torch.cuda.empty_cache()
+
+
+class RouteLog:
+    """In call order, a paged engine's forwards (their input tokens) and
+    its MoE layers' routing (the chosen experts, and each row's gap
+    between the K-th and (K+1)-th probabilities), written into device
+    buffers with ``index_copy_`` at a device counter: the records of a
+    captured step are written at each of its replays, with no host copy."""
+    FORWARD, MOE = 1, 2
+    N, W = 1024, 256            # records; values per record
+
+    def __init__(self, torch, dev):
+        self.torch = torch
+        self.kind = torch.zeros((self.N,), dtype=torch.int64, device=dev)
+        self.data = torch.zeros((self.N, self.W), dtype=torch.int64,
+                                device=dev)
+        self.gap = torch.zeros((self.N, self.W), dtype=torch.float32,
+                               device=dev)
+        self.n = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+    def add(self, kind: int, values, gap=None) -> None:
+        torch, F = self.torch, self.torch.nn.functional
+        flat = values.reshape(-1).to(torch.int64)
+        if flat.numel() > self.W:
+            fail(f"route log: a record of {flat.numel()} values > {self.W}")
+        # past N the last record is overwritten and ``read`` fails
+        i = self.n.clamp(max=self.N - 1)
+        self.kind.index_copy_(0, i, torch.full_like(i, kind))
+        self.data.index_copy_(0, i, F.pad(flat, (0, self.W - flat.numel()),
+                                          value=-1)[None])
+        if gap is not None:
+            self.gap.index_copy_(0, i, F.pad(gap.float(),
+                                             (0, self.W - gap.numel()))[None])
+        self.n.add_(1)
+
+    def read(self) -> list:
+        """[(kind, values, gap)] of every record since the last ``read``
+        (host arrays; a MoE record's values are its (T, K) choices)."""
+        self.torch.cuda.synchronize()
+        n = int(self.n)
+        if n > self.N:
+            fail(f"route log: {n} records overflow its {self.N}")
+        kind, data, gap = (t[:n].cpu().numpy() for t in
+                           (self.kind, self.data, self.gap))
+        self.n.zero_()
+        return [(int(k), d[d >= 0], g) for k, d, g in zip(kind, data, gap)]
+
+
+def first_divergence(card: list, cpu: list, K: int, tie_tol: float):
+    """The first record at which two ``RouteLog`` reads differ: None where
+    they agree throughout; else (index, "tokens") for a forward's input
+    tokens, (index, "tie") for a routing flip whose every flipped row had
+    a CPU gap within ``tie_tol``, (index, "flip") for any other."""
+    import numpy as np
+    for i, ((k1, v1, _), (k2, v2, gap)) in enumerate(zip(card, cpu)):
+        if k1 != k2 or v1.shape != v2.shape:
+            return i, "tokens"
+        if np.array_equal(v1, v2):
+            continue
+        if k1 == RouteLog.FORWARD:
+            return i, "tokens"
+        rows = (np.sort(v1.reshape(-1, K), -1)
+                != np.sort(v2.reshape(-1, K), -1)).any(-1)
+        if not rows.any():
+            continue                    # the same sets, in another order
+        return i, ("tie" if (gap[:len(rows)][rows] <= tie_tol).all()
+                   else "flip")
+    return None
 
 
 def moe_parity(torch, np, dev, seed: int):
@@ -2364,35 +2517,42 @@ def moe_parity(torch, np, dev, seed: int):
     the card against the CPU, greedy: prefill logits within 1e-3; the
     prefill's chosen experts identical, a flip passing only where the
     K-th and (K+1)-th probabilities are within 1e-5; tokens identical with
-    spec off, spec on and at D 3 (a run is excused only if the CPU's
-    routing came within 1e-5 of a tie somewhere in it); each engine
-    kernel's launches against its formula."""
+    spec off, spec on and at D 3 (a run's tokens are excused only where
+    the first difference between the card's and the CPU's records of its
+    forwards is a routing flip at such a tie, so that the flip precedes
+    the first differing token); each engine kernel's launches against its
+    formula."""
     from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import paged
     from repro_torch.kernels import LAUNCHES
     from repro_torch.launch.serve import build_paged_engine, serve_paged
     from repro_torch.models import forward, init, moe
-    route = moe._route
-    seen = {"cpu_gap": float("inf"), "log": None}
+    route, fwd_hidden = moe._route, paged.forward_hidden
+    active = {}                         # device type -> RouteLog
 
     def recording_route(params, cfg, xf, want_aux):
         out = route(params, cfg, xf, want_aux)
-        if xf.device.type == "cpu" or seen["log"] is not None:
+        log = active.get(xf.device.type)
+        if log is not None:
             probs = torch.softmax(xf.float() @ params["router"], dim=-1)
             top = torch.sort(probs, dim=-1, descending=True,
                              stable=True).values
             K = cfg.num_experts_per_tok
-            gap = top[:, K - 1] - top[:, K]
-            if xf.device.type == "cpu":
-                seen["cpu_gap"] = min(seen["cpu_gap"], float(gap.min()))
-            if seen["log"] is not None:
-                seen["log"].append((out[1].cpu(), gap.cpu()))
+            log.add(RouteLog.MOE, out[1], top[:, K - 1] - top[:, K])
         return out
-    moe._route = recording_route
+
+    def recording_forward(params, cfg, tokens, **kw):
+        log = active.get(tokens.device.type)
+        if log is not None:
+            log.add(RouteLog.FORWARD, tokens)
+        return fwd_hidden(params, cfg, tokens, **kw)
+    moe._route, paged.forward_hidden = recording_route, recording_forward
+    logs = {"cuda": RouteLog(torch, dev), "cpu": RouteLog(torch, "cpu")}
     lines = []
     try:
         for arch in ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"):
             cfg = reduced_config(get_config(arch))
-            L = cfg.num_layers
+            L, K = cfg.num_layers, cfg.num_experts_per_tok
             verify, decode = PAGED_KERNELS[cfg.use_mla]
             p_cpu = init(cfg, seed=seed, device="cpu")
             p_gpu = _to(p_cpu, dev)
@@ -2404,14 +2564,16 @@ def moe_parity(torch, np, dev, seed: int):
                                .astype(np.int32))
             kw = dict(max_prompt_len=48, max_new=16, num_slots=2,
                       page_size=16, temperature=0.0)
-            runs, excused = {}, []
+            runs, excused, diverged = {}, [], {}
             for name, over in (("plain", {}), ("spec", {"spec_k": SPEC_K}),
                                ("d3", {"drain_interval": 3})):
-                # serve_paged's run, with the graph's warm-up launches
-                # (at the first set_params) left out of the counts
+                # serve_paged's run, with the graph's warm-up launches and
+                # records (at the first set_params) left out
+                active.update(logs)
                 eng = build_paged_engine(cfg, device=dev, **kw, **over)
                 params = eng.set_params(p_gpu)
                 torch.cuda.synchronize()
+                logs["cuda"].read()
                 n0 = dict(LAUNCHES)
                 gpu = eng.serve(params, prompts, seed + 1)
                 torch.cuda.synchronize()
@@ -2424,42 +2586,47 @@ def moe_parity(torch, np, dev, seed: int):
                 if got != want:
                     fail(f"moe parity {cfg.name} {name}: launches {got} != "
                          f"{want}")
-                seen["cpu_gap"] = float("inf")
+                logs["cpu"].read()
                 cpu, _ = serve_paged(cfg, prompts, device="cpu",
                                      params=p_cpu, seed=seed, **kw, **over)
+                active.clear()
                 runs[name] = (_tokens(gpu), _tokens(cpu))
+                first = first_divergence(logs["cuda"].read(),
+                                         logs["cpu"].read(), K, 1e-5)
+                diverged[name] = first
                 if runs[name][0] != runs[name][1]:
-                    if seen["cpu_gap"] >= 1e-5:
+                    if first is None or first[1] != "tie":
                         fail(f"moe parity {cfg.name} {name}: card tokens "
-                             f"{runs[name][0]} != CPU {runs[name][1]} with "
-                             f"no routing tie within 1e-5 "
-                             f"(closest {seen['cpu_gap']})")
+                             f"{runs[name][0]} != CPU {runs[name][1]}; the "
+                             f"first differing record is {first} (a "
+                             f"routing flip at a tie excuses it)")
                     excused.append(name)
             toks = torch.from_numpy(rng.randint(3, cfg.vocab_size,
                                                 size=(2, 48)))
-            logs = []
+            prefill = []
             for params, where in ((p_cpu, "cpu"), (p_gpu, dev)):
-                seen["log"] = []
+                log = logs[torch.device(where).type]
+                active[torch.device(where).type] = log
                 lg, _ = forward(params, cfg, toks.to(where))
-                logs.append((lg.cpu(), seen["log"]))
-                seen["log"] = None
-            (lg_cpu, log_cpu), (lg_gpu, log_gpu) = logs
+                active.clear()
+                prefill.append((lg.cpu(), log.read()))
+            (lg_cpu, log_cpu), (lg_gpu, log_gpu) = prefill
             err = float((lg_gpu - lg_cpu).abs().max())
             flips = tied_flips = 0
-            for (i_cpu, gap), (i_gpu, _) in zip(log_cpu, log_gpu):
-                rows = (i_cpu.sort(-1).values != i_gpu.sort(-1).values
-                        ).any(-1)
+            for (_, i_cpu, gap), (_, i_gpu, _) in zip(log_cpu, log_gpu):
+                rows = (np.sort(i_cpu.reshape(-1, K), -1)
+                        != np.sort(i_gpu.reshape(-1, K), -1)).any(-1)
                 flips += int(rows.sum())
-                tied_flips += int((rows & (gap <= 1e-5)).sum())
+                tied_flips += int((rows & (gap[:len(rows)] <= 1e-5)).sum())
             line = {"phase": "moe_parity", "arch": cfg.name,
                     "dtype": "float32", "layers": L,
-                    "experts": cfg.num_experts,
-                    "top_k": cfg.num_experts_per_tok,
+                    "experts": cfg.num_experts, "top_k": K,
                     "requests": len(prompts), "spec_k": SPEC_K,
                     "tokens": sum(len(t) for t in runs["plain"][1].values()),
                     "tokens_identical": [k for k in runs
                                          if k not in excused],
                     "excused_by_a_routing_tie": excused,
+                    "first_record_difference": diverged,
                     "prefill_logits_max_abs_err": err, "tol": 1e-3,
                     "prefill_routing_layers": len(log_cpu),
                     "prefill_routing_flips": flips,
@@ -2470,7 +2637,7 @@ def moe_parity(torch, np, dev, seed: int):
                 fail(f"moe parity: {line}")
             lines.append(line)
     finally:
-        moe._route = route
+        moe._route, paged.forward_hidden = route, fwd_hidden
     return lines
 
 
@@ -2601,9 +2768,11 @@ def main() -> None:
     del spec_eng
     gc.collect()
     torch.cuda.empty_cache()
-    emit(radix_serve(torch, np, dev, get_config("llama3.2-3b"), params,
-                     args.seed))
+    weights = HeldTree(params)
     del params
+    emit(radix_serve(torch, np, dev, get_config("llama3.2-3b"), weights,
+                     args.seed))
+    del weights
     emit(reduced_parity(torch, np, dev, args.seed))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2617,7 +2786,7 @@ def main() -> None:
     emit(spec_parity(torch, np, dev, args.seed))
     gc.collect()
     torch.cuda.empty_cache()
-    mla_params, mla_eng, mla_prompts, mla_srv = mla_serve(
+    mla_weights, mla_eng, mla_prompts, mla_srv = mla_serve(
         torch, np, dev, args.seed, spec_k=0)
     emit(mla_srv)
     # the MLA kernel's device time per step: its main kernel and (above one
@@ -2631,15 +2800,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     _, _, _, mla_spec = mla_serve(torch, np, dev, args.seed, spec_k=SPEC_K,
-                                  params=mla_params)
+                                  weights=mla_weights)
     emit(mla_spec)
     gc.collect()
     torch.cuda.empty_cache()
     # phase 15: phase 9's workload on the same weights
-    mla_radix = radix_serve(torch, np, dev, mla_dense_config(), mla_params,
+    mla_radix = radix_serve(torch, np, dev, mla_dense_config(), mla_weights,
                             args.seed, phase="mla_radix_serve")
     emit(mla_radix)
-    del mla_params
+    del mla_weights
     gc.collect()
     torch.cuda.empty_cache()
     emit(mla_parity(torch, np, dev, args.seed))

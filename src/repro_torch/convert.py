@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.moe import leaf_dtype
 from repro_torch.models.transformer import layer, param_shapes
 
 
@@ -47,8 +48,8 @@ def from_jax(tree: dict, cfg: ModelConfig, *, device) -> dict:
         if a.shape != tuple(shapes):
             raise ValueError(f"{path}: expected shape {tuple(shapes)}, got "
                              f"{a.shape}")
-        leaf_dt = torch.float32 if path.endswith("/router") else dt
-        return torch.from_numpy(a).to(device=device, dtype=leaf_dt)
+        return torch.from_numpy(a).to(
+            device=device, dtype=leaf_dtype(path.rsplit("/", 1)[-1], dt))
 
     return walk(tree, param_shapes(cfg), "")
 

@@ -639,7 +639,7 @@ class PagedGroupEngine:
 
     # -- host API -----------------------------------------------------------
 
-    def set_params(self, params, *, adopt: bool = False) -> dict:
+    def set_params(self, params) -> dict:
         """Swap weights (iteration-boundary sync). Must be quiescent.
         Returns the tree the engine decodes with.
 
@@ -653,11 +653,7 @@ class PagedGroupEngine:
         (the trainer's policy, the reference model). A caller that hands
         the weights over keeps the returned tree instead of its own, so the
         card holds them once (the weight-plane's flip does; the serve entry
-        points drop theirs). ``adopt=True`` at the first call hands them
-        over without the clone: the engine decodes with the caller's
-        tensors, which nothing else may write but a later ``set_params``
-        (a model whose weights fill half the card cannot be cloned
-        twice).
+        points drop theirs).
 
         The radix tree is dropped: its pages hold K/V written under the
         previous weights, and a warm admission under the new ones would
@@ -678,13 +674,13 @@ class PagedGroupEngine:
                     self.radix.pages())
                 self.radix = RadixCache(self.page, self.alloc)
             if self.stream is None:
-                return self._load_params(params, adopt)
+                return self._load_params(params)
             caller = torch.cuda.current_stream(self.device)
             # params were written on the caller's stream (the trainer's,
             # the weight-plane's unpack): the engine reads them after it
             self.stream.wait_stream(caller)
             with torch.cuda.stream(self.stream):
-                own = self._load_params(params, adopt)
+                own = self._load_params(params)
             # the caller may free params once this returns (the store drops
             # a landed tree): no reuse of their memory before the copy ran
             for leaf in _tree_leaves(params):
@@ -693,7 +689,7 @@ class PagedGroupEngine:
             caller.wait_stream(self.stream)
             return own
 
-    def _load_params(self, params, adopt: bool) -> dict:
+    def _load_params(self, params) -> dict:
         """``set_params``' device work, on the engine's stream on the
         card: the copy into the engine's tensors, or at the first call the
         clone, the pool and the graph."""
@@ -706,7 +702,7 @@ class PagedGroupEngine:
             return self.params
         first = self.params is None
         self.params = (_tree_clone(params) if self.device.type == "cuda"
-                       and not adopt else params)
+                       else params)
         # f32 LM head, as the JAX engine computes next-token logits: a
         # view of f32 weights, an f32 copy of bf16 ones (1.5 GB at
         # llama3.2-3b width)

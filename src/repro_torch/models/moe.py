@@ -45,6 +45,12 @@ def moe_shapes(cfg: ModelConfig) -> dict:
     return p
 
 
+def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a parameter leaf named ``name`` in a tree of
+    ``dtype``: the MoE router stays f32, as ``init_moe`` keeps it."""
+    return torch.float32 if name == "router" else dtype
+
+
 def capacity(num_tokens: int, cfg: ModelConfig) -> int:
     """Pairs each expert keeps a forward: ceil(T K / E x cf), padded up to
     a multiple of 8, at least 8."""

@@ -24,7 +24,7 @@ from repro_torch.models.attention import (DenseCacheBackend,
                                           PagedCacheBackend, attention)
 from repro_torch.models.layers import (dense_init, dtype_of, embed, mlp,
                                        rmsnorm)
-from repro_torch.models.moe import moe_ffn, moe_shapes
+from repro_torch.models.moe import leaf_dtype, moe_ffn, moe_shapes
 
 
 def _attn_shapes(cfg: ModelConfig) -> dict:
@@ -99,7 +99,7 @@ def init_model(cfg: ModelConfig, *, seed: int, device) -> dict:
         if name == "embedding":
             return (torch.randn(shape, generator=gen, device=device)
                     * 0.02).to(dt)
-        leaf_dt = torch.float32 if name == "router" else dt
+        leaf_dt = leaf_dtype(name, dt)
         if not stacked:
             return dense_init(shape, in_axis=len(shape) - 2, dtype=leaf_dt,
                               device=device, generator=gen)

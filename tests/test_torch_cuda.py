@@ -11,6 +11,8 @@ inputs. Both kernels compute in f32 and round once at the output, so the
 tolerance is f32 summation-order noise (2e-5), plus one bf16 ulp (2^-7 of
 the value) for a bf16 result.
 """
+import gc
+
 import numpy as np
 import pytest
 
@@ -724,32 +726,33 @@ def test_engine_owns_its_weights_on_the_card(dev):
         assert torch.equal(theirs.cpu(), ref)
 
 
-def test_engine_adopts_a_handed_over_tree(dev):
-    """``set_params(adopt=True)`` keeps the caller's tensors (no clone):
-    the engine's tree is the caller's, a later set_params copies into
-    them, and the greedy tokens equal those of an engine that cloned."""
+def test_engine_holds_a_handed_over_tree_once(dev):
+    """The serve entry points' hand-over: the caller keeps the tree
+    ``set_params`` returns (the engine's clone) and drops its own, and no
+    tensor of the dropped tree stays alive; a second engine loaded from
+    the first's tree, the first dropped, leaves one tree again; the
+    tokens equal those of an engine whose caller kept its tree."""
+    import weakref
     from repro_torch.launch.serve import build_paged_engine
     cfg, p_cpu, p_gpu = _reduced_llama(dev)
     prompts = [np.arange(3, 3 + n, dtype=np.int32) for n in (4, 9, 17)]
     kw = dict(max_prompt_len=24, max_new=8, num_slots=2, page_size=8,
               temperature=0.0, device=dev)
-    cloned = build_paged_engine(cfg, **kw)
-    want = cloned.serve(p_gpu, prompts, 0)
-    mine = _to_dev(p_cpu, dev)
-    eng = build_paged_engine(cfg, **kw)
-    assert eng.set_params(mine, adopt=True) is mine
-    got = eng.serve(mine, prompts, 0)
-    assert [c.response_ids.tolist() for c in got] == \
-        [c.response_ids.tolist() for c in want]
-    ptrs = [t.data_ptr() for t in _leaves(mine)]
-    new = _to_dev(p_cpu, dev)
-    for t in _leaves(new):
-        t.mul_(2)
-    assert eng.set_params(new) is mine
-    torch.cuda.synchronize()
-    assert [t.data_ptr() for t in _leaves(mine)] == ptrs
-    assert all(torch.equal(a, b) for a, b in zip(_leaves(mine),
-                                                 _leaves(new)))
+    want = [c.response_ids.tolist()
+            for c in build_paged_engine(cfg, **kw).serve(p_gpu, prompts, 0)]
+    tree = _to_dev(p_cpu, dev)
+    for step in range(2):
+        eng = build_paged_engine(cfg, **kw)
+        gone = [weakref.ref(t) for t in _leaves(tree)]
+        own = eng.set_params(tree)
+        assert own is eng.params and own is not tree
+        del tree
+        gc.collect()
+        assert all(r() is None for r in gone), step
+        got = eng.serve(own, prompts, 0)
+        assert [c.response_ids.tolist() for c in got] == want, step
+        tree = own
+        del eng, own
 
 
 def _leaves(tree):
