@@ -171,7 +171,7 @@ The profile phases also time each replay with CUDA events
      launch 0 times, as do the GQA paged kernels; transfer_cast = leaves
      x publishes.
 
- 17. moe_serve (last, after every earlier model, engine and pool is
+ 17. moe_serve (after every earlier model, engine and pool is
      freed; the memory still allocated is printed first): deepseek-v2-lite
      as published (27 layers: 1 dense prelude layer, d_ff 10944, and 26
      MoE layers of 64 experts top-6 with 2 shared, moe_d_ff 1408; MLA;
@@ -209,7 +209,30 @@ The profile phases also time each replay with CUDA events
      card's and the CPU's records of its forwards, input tokens and chosen
      experts in call order, is a routing flip at such a tie), and
      the SPA, paged decode and paged verify kernels (qwen3-moe) or the MLA
-     pair (deepseek) launched by their formulas.
+     pair (deepseek) launched by their formulas. Each run also reports
+     the rows whose chosen experts or keep flags differ between card and
+     CPU, idle (position >= 2^30) or live, and the spec and D 3 runs are
+     repeated with the rotary frequencies computed on the card (the
+     port's earlier way) to show which rows that moves.
+ 18. moe_train (last, after phase 17's tree is freed; the memory still
+     allocated is printed first): phase 6's run (its settings, checks and
+     prints, the last iteration profiled) on deepseek-v2-lite as
+     published in f32, every width kept, cut to 3 layers (the dense
+     prelude and 2 MoE layers, 1.670 B parameters): a finite loss and a
+     finite, positive aux in every grad step; the MLA decode kernel 3 x
+     (decode steps + the graph's warm-up step), transfer_cast leaves x
+     publishes, every other kernel 0; the (token, choice) pairs dropped
+     by each forward kind (prefill, decode, and the grad steps'
+     reference, policy and recompute forwards apart); kernels per decode
+     step and per grad step of the profiled iteration. Then
+     moe_train_parity: reduced deepseek-v2-lite and reduced qwen3-moe (2
+     layers, 4 experts top-2, f32) with a router skewed so that the
+     packed micro-batch drops pairs, one captured grad step on the card
+     against the CPU on phase 7's micro-batch: loss and aux within 1e-5
+     relative, every gradient leaf within 2e-4 of its largest entry, each
+     MoE call's keep mask equal (excused only behind a flip at a K-th /
+     (K+1)-th gap within 1e-5, counted), and qwen3-moe's SPA kernels
+     launched by their formula.
 
 The SPA kernels run bf16 on the tensor cores (wgmma, with the
 probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
@@ -246,7 +269,8 @@ decode, f32 and windowed cases of phase 2 beside them under their names,
 the decode entry's "training" case with phase 16's launches, in all and
 per iteration, and the verify entry's "suffix_prefill" case with phase
 15's spec-off launches; both MLA entries also carry phase 17's launches
-on deepseek-v2-lite as published); and last {"ok": true, "device":
+on deepseek-v2-lite as published, the decode entry phase 18's too, as
+does the transfer_cast entry); and last {"ok": true, "device":
 {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
@@ -1809,10 +1833,12 @@ def run_profiled(torch, run, iterations: int):
 
 def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
                      drain: int = 1, profile: bool = False, cfg=None,
-                     phase: str = "train"):
-    """Phase 6's run (phase 16's with ``cfg`` full-depth f32 mla_dense).
-    ``profile``: its last iteration runs under torch.profiler
-    (``run_profiled``)."""
+                     phase: str = "train", hook=None):
+    """Phase 6's run (phase 16's with ``cfg`` full-depth f32 mla_dense,
+    phase 18's with 3-layer f32 deepseek-v2-lite). ``profile``: its last
+    iteration runs under torch.profiler (``run_profiled``). ``hook(sched,
+    parts)`` runs once the pipeline is built, before the first
+    iteration."""
     from repro_torch.configs.base import RLConfig
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.train import build_pipeline
@@ -1848,6 +1874,8 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
             torch, store.snapshot()[0], params)])
         return v
     sched.transfer.ensure = checked_ensure
+    if hook is not None:
+        hook(sched, parts)
     reset_launch_counts()
     busy = None
     if profile:
@@ -1960,23 +1988,12 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
     return out
 
 
-def train_parity(torch, np, dev, seed: int, cfg=None):
-    """One captured grad step and one Adam update of a reduced model
-    (llama unless ``cfg`` says otherwise) on the card against the CPU: for
-    llama the SPA kernels against their plain versions; for mla_dense its
-    expanded attention in plain PyTorch, which launches no kernel of the
-    port."""
-    from repro_torch.configs import get_config, reduced_config
-    from repro_torch.configs.base import RLConfig
+def _parity_batch(np, cfg, seed: int):
+    """Phase 7's micro-batch: one SPA-packed row of a 40-token prompt and
+    G 8 responses of 5 to 48 tokens, captured logprobs, non-constant
+    advantages. Returns (the numpy micro-batch, G)."""
     from repro_torch.core.queue import RolloutGroup
     from repro_torch.core.spa import pack_spa
-    from repro_torch.kernels import LAUNCHES, reset_launch_counts
-    from repro_torch.models import init
-    from repro_torch.optim.adam import adam_init
-    from repro_torch.rl.grpo import (make_apply_update,
-                                     make_grad_step_captured, to_device)
-    cfg = reduced_config(get_config("llama3.2-3b")) if cfg is None else cfg
-    rl = RLConfig()                      # the paper's lr 1e-6, Adam, clip 1
     G, Lp, T = 8, 40, 48
     rng = np.random.RandomState(seed + 7)
     lens = rng.randint(5, T + 1, size=G).astype(np.int32)
@@ -1989,14 +2006,36 @@ def train_parity(torch, np, dev, seed: int, cfg=None):
         rewards=np.zeros(G, np.float32), weight_version=0,
         response_logprobs=(-3.0 * rng.rand(G, T)).astype(np.float32))
     adv = rng.randn(G).astype(np.float32)        # non-constant advantages
-    mb = pack_spa(group, adv, Lp, T, responses_per_row=G)
+    return pack_spa(group, adv, Lp, T, responses_per_row=G), G
 
+
+def _perturbed(layers: dict, other: dict) -> dict:
+    """Each stacked layer leaf plus 0.05 x ``other``'s (the reference
+    weights near the policy)."""
+    return {k: _perturbed(v, other[k]) if isinstance(v, dict)
+            else v + 0.05 * other[k] for k, v in layers.items()}
+
+
+def train_parity(torch, np, dev, seed: int, cfg=None):
+    """One captured grad step and one Adam update of a reduced model
+    (llama unless ``cfg`` says otherwise) on the card against the CPU: for
+    llama the SPA kernels against their plain versions; for mla_dense its
+    expanded attention in plain PyTorch, which launches no kernel of the
+    port."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import init
+    from repro_torch.optim.adam import adam_init
+    from repro_torch.rl.grpo import (make_apply_update,
+                                     make_grad_step_captured, to_device)
+    cfg = reduced_config(get_config("llama3.2-3b")) if cfg is None else cfg
+    rl = RLConfig()                      # the paper's lr 1e-6, Adam, clip 1
+    mb, G = _parity_batch(np, cfg, seed)
     policy = init(cfg, seed=seed, device="cpu")
     other = init(cfg, seed=seed + 1, device="cpu")
     ref = {k: v for k, v in policy.items()}
-    ref["layers"] = {k: {kk: vv + 0.05 * other["layers"][k][kk]
-                         for kk, vv in v.items()}
-                     for k, v in policy["layers"].items()}
+    ref["layers"] = _perturbed(policy["layers"], other["layers"])
     results = []
     reset_launch_counts()
     for where in ("cpu", dev):
@@ -2206,32 +2245,42 @@ def device_loop(torch, np, dev, seed: int):
 # ---------------------------------------------------------------------
 
 MOE_KINDS = ("prefill", "decode", "verify")
+# the grad step's forwards (phase 18): the no-grad reference forward, the
+# policy forward (autograd recording) and the backward's recompute of each
+# checkpointed layer
+GRAD_KINDS = ("grad_reference", "grad_policy", "grad_recompute")
 
 
 class DropCounter:
     """A test-side wrapper, not an engine feature: per forward kind
     (prefill: one row; decode: one token a row; verify: several tokens a
-    row), the MoE layer calls, the (token, choice) pairs routed, those
-    dropped past an expert's capacity, and the distinct experts each call
-    routed to (summed over calls), added up in device tensors. The adds
-    run inside the engine's captured step, so the counter is installed
+    row; with ``GRAD_KINDS``, the forwards of a grad step that
+    ``grad_step`` wraps), the MoE layer calls, the (token, choice) pairs
+    routed, those dropped past an expert's capacity, and the distinct
+    experts each call routed to (summed over calls), added up in device
+    tensors, one a kind (the engine's stream adds to the serving kinds',
+    the trainer's to the grad kinds'). The kind is per thread: the rollout
+    engine prefills on its own thread while the trainer steps, and the
+    backward's recompute runs on autograd's device thread. The adds run
+    inside the engine's captured step, so the counter is installed
     before an engine's first ``set_params`` and every replay counts;
     ``take`` reads and zeroes the tensors in place (the graph holds their
     addresses)."""
 
-    def __init__(self, torch, dev, moe_layers: int):
+    def __init__(self, torch, dev, moe_layers: int, kinds=MOE_KINDS):
+        import threading
         from repro_torch.models import moe, transformer
         self.torch, self.moe_layers = torch, moe_layers
         self.counts = {k: torch.zeros(4, dtype=torch.int64, device=dev)
-                       for k in MOE_KINDS}
+                       for k in kinds}
         self._saved = (moe._dispatch_slots, transformer.moe_ffn)
         dispatch, ffn = self._saved
-        kind = ["prefill"]
+        local = self.local = threading.local()
         counts = self.counts
 
         def counting_dispatch(top_i, E, C):
             slot, keep = dispatch(top_i, E, C)
-            c = counts[kind[0]]
+            c = counts[local.kind]
             c[0:1].add_(1)                       # scalars: no host copy
             c[1:2].add_(keep.numel())
             c[2:3].add_((~keep).sum())
@@ -2241,11 +2290,30 @@ class DropCounter:
 
         def classifying_ffn(params, cfg, x, **kw):
             B, S, _ = x.shape
-            kind[0] = ("decode" if S == 1 else "prefill" if B == 1
-                       else "verify")
+            if torch._C._current_graph_task_id() != -1:
+                local.kind = "grad_recompute"    # inside a backward
+            elif getattr(local, "grad_step", False):
+                local.kind = ("grad_policy" if torch.is_grad_enabled()
+                              else "grad_reference")
+            else:
+                local.kind = ("decode" if S == 1 else "prefill" if B == 1
+                              else "verify")
             return ffn(params, cfg, x, **kw)
         moe._dispatch_slots = counting_dispatch
         transformer.moe_ffn = classifying_ffn
+
+    def grad_step(self, step):
+        """``step`` (a scheduler's grad step) with its forwards counted
+        under the grad kinds."""
+        local = self.local
+
+        def counted(*args):
+            local.grad_step = True
+            try:
+                return step(*args)
+            finally:
+                local.grad_step = False
+        return counted
 
     def remove(self) -> None:
         from repro_torch.models import moe, transformer
@@ -2445,12 +2513,13 @@ def moe_serve(torch, np, dev, seed: int, smi: str):
 
 
 class RouteLog:
-    """In call order, a paged engine's forwards (their input tokens) and
-    its MoE layers' routing (the chosen experts, and each row's gap
-    between the K-th and (K+1)-th probabilities), written into device
-    buffers with ``index_copy_`` at a device counter: the records of a
-    captured step are written at each of its replays, with no host copy."""
-    FORWARD, MOE = 1, 2
+    """In call order, a paged engine's forwards (their input tokens, then
+    their positions) and its MoE layers' routing (the chosen experts, and
+    each row's gap between the K-th and (K+1)-th probabilities, then the
+    keep mask), written into device buffers with ``index_copy_`` at a
+    device counter: the records of a captured step are written at each of
+    its replays, with no host copy."""
+    FORWARD, MOE, POS, KEEP = 1, 2, 3, 4
     N, W = 1024, 256            # records; values per record
 
     def __init__(self, torch, dev):
@@ -2490,12 +2559,18 @@ class RouteLog:
         return [(int(k), d[d >= 0], g) for k, d, g in zip(kind, data, gap)]
 
 
+def _tokens_and_routes(log: list) -> list:
+    return [r for r in log if r[0] in (RouteLog.FORWARD, RouteLog.MOE)]
+
+
 def first_divergence(card: list, cpu: list, K: int, tie_tol: float):
-    """The first record at which two ``RouteLog`` reads differ: None where
-    they agree throughout; else (index, "tokens") for a forward's input
-    tokens, (index, "tie") for a routing flip whose every flipped row had
-    a CPU gap within ``tie_tol``, (index, "flip") for any other."""
+    """The first record at which two ``RouteLog`` reads differ in a
+    forward's input tokens or a MoE layer's choices: None where they agree
+    throughout; else (index, "tokens") for a forward's input tokens,
+    (index, "tie") for a routing flip whose every flipped row had a CPU
+    gap within ``tie_tol``, (index, "flip") for any other."""
     import numpy as np
+    card, cpu = _tokens_and_routes(card), _tokens_and_routes(cpu)
     for i, ((k1, v1, _), (k2, v2, gap)) in enumerate(zip(card, cpu)):
         if k1 != k2 or v1.shape != v2.shape:
             return i, "tokens"
@@ -2510,6 +2585,54 @@ def first_divergence(card: list, cpu: list, K: int, tie_tol: float):
         return i, ("tie" if (gap[:len(rows)][rows] <= tie_tol).all()
                    else "flip")
     return None
+
+
+def idle_row_report(card: list, cpu: list, K: int) -> dict:
+    """Where two ``RouteLog`` reads differ, up to their first differing
+    input tokens: the rows whose chosen experts differ and the rows whose
+    keep flags differ, each split into idle rows (position >= 2^30, an
+    empty slot's row or a verify block's masked token) and live rows."""
+    import numpy as np
+    out = {"records": 0, "routing_rows": {"idle": 0, "live": 0},
+           "keep_rows": {"idle": 0, "live": 0}}
+    idle = None
+    for (k1, v1, _), (k2, v2, _) in zip(card, cpu):
+        if k1 != k2 or v1.shape != v2.shape or (
+                k1 == RouteLog.FORWARD and not np.array_equal(v1, v2)):
+            break
+        out["records"] += 1
+        if k1 == RouteLog.POS:
+            idle = v2 >= 2 ** 30
+        elif k1 in (RouteLog.MOE, RouteLog.KEEP):
+            rows = (np.sort(v1.reshape(-1, K), -1)
+                    != np.sort(v2.reshape(-1, K), -1)).any(-1) \
+                if k1 == RouteLog.MOE else \
+                (v1.reshape(-1, K) != v2.reshape(-1, K)).any(-1)
+            key = "routing_rows" if k1 == RouteLog.MOE else "keep_rows"
+            out[key]["idle"] += int((rows & idle).sum())
+            out[key]["live"] += int((rows & ~idle).sum())
+    return out
+
+
+class card_made_rope_freqs:
+    """Within it, rotary frequencies are computed on the tensor's device
+    (``models/layers.py``'s earlier formula) instead of on the CPU."""
+
+    def __init__(self, torch):
+        from repro_torch.models import layers
+        self.torch, self.layers = torch, layers
+
+    def __enter__(self):
+        torch, self.saved = self.torch, self.layers.rope_freqs
+
+        def on_device(head_dim, theta, device):
+            half = head_dim // 2
+            return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                                 device=device) / half))
+        self.layers.rope_freqs = on_device
+
+    def __exit__(self, *exc):
+        self.layers.rope_freqs = self.saved
 
 
 def moe_parity(torch, np, dev, seed: int):
@@ -2528,6 +2651,7 @@ def moe_parity(torch, np, dev, seed: int):
     from repro_torch.launch.serve import build_paged_engine, serve_paged
     from repro_torch.models import forward, init, moe
     route, fwd_hidden = moe._route, paged.forward_hidden
+    dispatch = moe._dispatch_slots
     active = {}                         # device type -> RouteLog
 
     def recording_route(params, cfg, xf, want_aux):
@@ -2541,12 +2665,21 @@ def moe_parity(torch, np, dev, seed: int):
             log.add(RouteLog.MOE, out[1], top[:, K - 1] - top[:, K])
         return out
 
+    def recording_dispatch(top_i, E, C):
+        slot, keep = dispatch(top_i, E, C)
+        log = active.get(top_i.device.type)
+        if log is not None:
+            log.add(RouteLog.KEEP, keep)
+        return slot, keep
+
     def recording_forward(params, cfg, tokens, **kw):
         log = active.get(tokens.device.type)
         if log is not None:
             log.add(RouteLog.FORWARD, tokens)
+            log.add(RouteLog.POS, kw["positions"].expand(tokens.shape))
         return fwd_hidden(params, cfg, tokens, **kw)
     moe._route, paged.forward_hidden = recording_route, recording_forward
+    moe._dispatch_slots = recording_dispatch
     logs = {"cuda": RouteLog(torch, dev), "cpu": RouteLog(torch, "cpu")}
     lines = []
     try:
@@ -2564,9 +2697,12 @@ def moe_parity(torch, np, dev, seed: int):
                                .astype(np.int32))
             kw = dict(max_prompt_len=48, max_new=16, num_slots=2,
                       page_size=16, temperature=0.0)
-            runs, excused, diverged = {}, [], {}
-            for name, over in (("plain", {}), ("spec", {"spec_k": SPEC_K}),
-                               ("d3", {"drain_interval": 3})):
+            runs, excused, diverged, idle_rows = {}, [], {}, {}
+
+            def one_run(name, over):
+                """One serving run on the card and on the CPU: (card
+                tokens, CPU tokens, their first differing record, the
+                differing rows)."""
                 # serve_paged's run, with the graph's warm-up launches and
                 # records (at the first set_params) left out
                 active.update(logs)
@@ -2590,9 +2726,13 @@ def moe_parity(torch, np, dev, seed: int):
                 cpu, _ = serve_paged(cfg, prompts, device="cpu",
                                      params=p_cpu, seed=seed, **kw, **over)
                 active.clear()
-                runs[name] = (_tokens(gpu), _tokens(cpu))
-                first = first_divergence(logs["cuda"].read(),
-                                         logs["cpu"].read(), K, 1e-5)
+                card_log, cpu_log = logs["cuda"].read(), logs["cpu"].read()
+                return (_tokens(gpu), _tokens(cpu),
+                        first_divergence(card_log, cpu_log, K, 1e-5),
+                        idle_row_report(card_log, cpu_log, K))
+            for name, over in (("plain", {}), ("spec", {"spec_k": SPEC_K}),
+                               ("d3", {"drain_interval": 3})):
+                *runs[name], first, idle_rows[name] = one_run(name, over)
                 diverged[name] = first
                 if runs[name][0] != runs[name][1]:
                     if first is None or first[1] != "tie":
@@ -2601,6 +2741,18 @@ def moe_parity(torch, np, dev, seed: int):
                              f"first differing record is {first} (a "
                              f"routing flip at a tie excuses it)")
                     excused.append(name)
+            # the spec and D 3 runs again with rotary frequencies computed
+            # on each device (the port's earlier way): a pow on the card
+            # rounds some an ulp away from the CPU's, which turns the angle
+            # of an idle row (position 2^30) by O(1); which rows then differ
+            card_made = {}
+            with card_made_rope_freqs(torch):
+                for name, over in (("spec", {"spec_k": SPEC_K}),
+                                   ("d3", {"drain_interval": 3})):
+                    gpu_t, cpu_t, first, rows = one_run(name, over)
+                    card_made[name] = {"tokens_identical": gpu_t == cpu_t,
+                                       "first_record_difference": first,
+                                       "differing_rows": rows}
             toks = torch.from_numpy(rng.randint(3, cfg.vocab_size,
                                                 size=(2, 48)))
             prefill = []
@@ -2609,7 +2761,8 @@ def moe_parity(torch, np, dev, seed: int):
                 active[torch.device(where).type] = log
                 lg, _ = forward(params, cfg, toks.to(where))
                 active.clear()
-                prefill.append((lg.cpu(), log.read()))
+                prefill.append((lg.cpu(), [r for r in log.read()
+                                           if r[0] == RouteLog.MOE]))
             (lg_cpu, log_cpu), (lg_gpu, log_gpu) = prefill
             err = float((lg_gpu - lg_cpu).abs().max())
             flips = tied_flips = 0
@@ -2627,6 +2780,10 @@ def moe_parity(torch, np, dev, seed: int):
                                          if k not in excused],
                     "excused_by_a_routing_tie": excused,
                     "first_record_difference": diverged,
+                    # the rows whose choices or keep flags differ between
+                    # card and CPU, idle (position >= 2^30) or live
+                    "differing_rows": idle_rows,
+                    "with_card_made_rope_freqs": card_made,
                     "prefill_logits_max_abs_err": err, "tol": 1e-3,
                     "prefill_routing_layers": len(log_cpu),
                     "prefill_routing_flips": flips,
@@ -2638,6 +2795,219 @@ def moe_parity(torch, np, dev, seed: int):
             lines.append(line)
     finally:
         moe._route, paged.forward_hidden = route, fwd_hidden
+        moe._dispatch_slots = dispatch
+    return lines
+
+
+# ---------------------------------------------------------------------
+# phase 18: GRPO training of deepseek-v2-lite with its MoE on
+# ---------------------------------------------------------------------
+
+# the dense prelude + 2 MoE layers: 1.670 B f32 parameters, about 56 GiB
+# at 36 bytes a parameter; 4 layers (2.255 B, about 75.6 GiB) do not fit
+MOE_TRAIN_LAYERS = 3
+
+
+def moe_train_config():
+    """deepseek-v2-lite as published (MLA, 64 experts top-6, 2 shared, the
+    dense prelude layer), f32, cut to ``MOE_TRAIN_LAYERS`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                               num_layers=MOE_TRAIN_LAYERS,
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def moe_train(torch, np, dev, seed: int, smi: str):
+    """Phase 18 (a): phase 6's run (``train_full_width``: its settings,
+    checks and prints, the last iteration profiled) on 3-layer full-width
+    f32 deepseek-v2-lite with MoE on. Also checks a finite loss and a
+    finite, positive aux in every grad step, and prints the (token,
+    choice) pairs dropped per forward kind (the engine's prefills and
+    decode steps, and the grad steps' reference, policy and recompute
+    forwards, from ``DropCounter``) and the kernels per decode step and
+    per grad step of the profiled iteration. Yields its lines."""
+    cfg = moe_train_config()
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    torch.cuda.synchronize()
+    yield {"phase": "moe_train_start", "card": smi,
+           "memory_allocated_gib": torch.cuda.memory_allocated(dev) / 2 ** 30}
+    counter = DropCounter(torch, dev, n_moe, kinds=MOE_KINDS + GRAD_KINDS)
+    steps = []                                # (loss, aux) per grad step
+
+    def hook(sched, parts):
+        for name in ("grad_step", "grad_step_captured"):
+            step = counter.grad_step(getattr(sched, name))
+
+            def recorded(*args, step=step):
+                grads, metrics = step(*args)
+                steps.append((metrics["loss"], metrics["aux"]))
+                return grads, metrics
+            setattr(sched, name, recorded)
+    try:
+        out = train_full_width(torch, np, dev, seed, profile=True, cfg=cfg,
+                               phase="moe_train", hook=hook)
+        drops = counter.take()
+    finally:
+        counter.remove()
+    losses = [[float(l), float(a)] for l, a in steps]
+    its = out["iterations"]
+    busy = out["device_busy_last_iteration"]
+    engine = busy["engine_stream"]
+    last_steps = len(steps) // len(its)
+    out.update({
+        "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+        "shared_experts": cfg.num_shared_experts,
+        "moe_d_ff": cfg.moe_d_ff, "prelude_layers": cfg.first_k_dense,
+        "dense_d_ff": cfg.dense_d_ff, "kv_lora_rank": cfg.kv_lora_rank,
+        "vocab": cfg.vocab_size, "moe_layers": n_moe,
+        "grad_steps": len(steps), "loss_aux_per_grad_step": losses,
+        "dropped_pairs": drops,
+        # the profiled iteration: the engine stream's kernels (its
+        # prefills' eager kernels beside the decode graph's) per decode
+        # step; the trainer's streams' kernels (the update and the
+        # publish's casts included) per grad step
+        "engine_stream_kernels_per_decode_step":
+            busy["streams"][engine]["kernels"] / its[-1]["decode_steps"],
+        "trainer_kernels_per_grad_step": sum(
+            v["kernels"] for sid, v in busy["streams"].items()
+            if sid != engine) / last_steps,
+        "card": smi})
+    yield out
+    if not losses or not all(np.isfinite(l) and np.isfinite(a) and a > 0
+                             for l, a in losses):
+        fail(f"moe_train: a grad step's loss or aux is not finite, or its "
+             f"aux not positive: {losses}")
+    if out["recomputed_steps"] or not (
+            drops["grad_policy"]["forwards"] == len(steps)
+            == drops["grad_reference"]["forwards"]
+            == drops["grad_recompute"]["forwards"]):
+        fail(f"moe_train: grad-step forwards {drops} != {len(steps)} steps")
+
+
+def _skew_router(tree) -> None:
+    """Every token of a reduced MoE tree routed to experts 0 and 1 first,
+    as the CPU tests' skewed router: a large first embedding coordinate,
+    and each router's first row favouring those experts."""
+    tree["embed"]["embedding"][:, 0] += 10.0
+    router = tree["layers"]["moe"]["router"]          # (L, d, E)
+    router[:, 0, :] = 0.0
+    router[:, 0, 0], router[:, 0, 1] = 1.0, 0.5
+
+
+def moe_train_parity(torch, np, dev, seed: int):
+    """Phase 18 (b): reduced deepseek-v2-lite and reduced qwen3-moe (2
+    layers, 4 experts top-2, f32) under a skewed router, so that the
+    packed micro-batch drops pairs: one captured grad step on the card
+    against the CPU on the same SPA-packed micro-batch (phase 7's): loss
+    and aux within 1e-5 relative, every gradient leaf within 2e-4 of its
+    largest entry, each MoE call's keep mask equal (a difference passes
+    only where every row whose choices differ has its K-th and (K+1)-th
+    probabilities within 1e-5; counted), and qwen3-moe's SPA kernels
+    launched by their formula (forward: reference, policy, recompute;
+    backward once a layer). Returns one line an arch."""
+    import threading
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import init, moe
+    from repro_torch.rl.grpo import make_grad_step_captured, to_device
+    route, dispatch = moe._route, moe._dispatch_slots
+    local = threading.local()
+    side = ["cpu"]                  # whose step the records belong to
+    records = []
+
+    def recording_route(params, cfg, xf, want_aux):
+        out = route(params, cfg, xf, want_aux)
+        top = torch.sort(torch.softmax(xf.float() @ params["router"], -1),
+                         dim=-1, descending=True, stable=True).values
+        K = cfg.num_experts_per_tok
+        local.route = (out[1].detach(), (top[:, K - 1] - top[:, K]).detach())
+        return out
+
+    def recording_dispatch(top_i, E, C):
+        slot, keep = dispatch(top_i, E, C)
+        kind = ("recompute" if torch._C._current_graph_task_id() != -1
+                else "policy" if torch.is_grad_enabled() else "reference")
+        records.append((side[0], kind, *local.route, keep.clone()))
+        return slot, keep
+    moe._route, moe._dispatch_slots = recording_route, recording_dispatch
+    lines = []
+    try:
+        for arch in ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"):
+            cfg = reduced_config(get_config(arch))
+            mb, G = _parity_batch(np, cfg, seed)
+            policy = init(cfg, seed=seed, device="cpu")
+            with torch.no_grad():
+                _skew_router(policy)
+            other = init(cfg, seed=seed + 1, device="cpu")
+            ref = {k: v for k, v in policy.items()}
+            ref["layers"] = _perturbed(policy["layers"], other["layers"])
+            results, launches = {}, None
+            records.clear()
+            for side[0], where in (("cpu", "cpu"), ("card", dev)):
+                reset_launch_counts()
+                grads, metrics = make_grad_step_captured(cfg, RLConfig())(
+                    _to(policy, where), None, _to(ref, where),
+                    to_device(mb, where))
+                results[side[0]] = (_to(grads, "cpu"), float(metrics["loss"]),
+                                    float(metrics["aux"]))
+                launches = dict(LAUNCHES)
+            (g_cpu, l_cpu, a_cpu), (g_gpu, l_gpu, a_gpu) = (
+                results["cpu"], results["card"])
+            grad_err = max(float((x - y).abs().max()) /
+                           max(float(y.abs().max()), 1e-30)
+                           for x, y in zip(_tree_leaves(g_gpu),
+                                           _tree_leaves(g_cpu)))
+            rec = {w: [r[1:] for r in records if r[0] == w]
+                   for w in ("cpu", "card")}
+            K = cfg.num_experts_per_tok
+            calls, excused, differ = len(rec["cpu"]), 0, 0
+            dropped = {}
+            for (kind, ti_c, gap, keep_c), (kind_g, ti_g, _, keep_g) in zip(
+                    rec["cpu"], rec["card"]):
+                dropped[kind] = dropped.get(kind, 0) + int((~keep_c).sum())
+                if kind != kind_g:
+                    differ += 1
+                    continue
+                if torch.equal(keep_c, keep_g.cpu()):
+                    continue
+                rows = (torch.sort(ti_c, -1).values
+                        != torch.sort(ti_g.cpu(), -1).values).any(-1)
+                if rows.any() and bool((gap[rows] <= 1e-5).all()):
+                    excused += 1
+                else:
+                    differ += 1
+            L = cfg.num_layers
+            want_fwd = 0 if cfg.use_mla else 3 * L
+            want_bwd = 0 if cfg.use_mla else L
+            line = {"phase": "moe_train_parity", "arch": cfg.name,
+                    "dtype": "float32", "layers": L,
+                    "experts": cfg.num_experts, "top_k": K, "G": G,
+                    "packed_row_len": int(mb.tokens.shape[1]),
+                    "capacity": moe.capacity(int(mb.tokens.size), cfg),
+                    "loss_card": l_gpu, "loss_cpu": l_cpu,
+                    "aux_card": a_gpu, "aux_cpu": a_cpu,
+                    "grad_max_err_rel_to_leaf_max": grad_err,
+                    "grad_tol": 2e-4, "loss_aux_rtol": 1e-5,
+                    "moe_calls": calls,
+                    "moe_calls_card": len(rec["card"]),
+                    "dropped_pairs_cpu_by_forward": dropped,
+                    "keep_masks_differing": differ,
+                    "keep_masks_excused_by_a_tie": excused,
+                    "tie_tol": 1e-5, "launches_card": launches,
+                    "expected_spa": [want_fwd, want_bwd]}
+            lines.append(line)
+            rel = [abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in ((l_gpu, l_cpu), (a_gpu, a_cpu))]
+            if max(rel) > 1e-5 or grad_err > 2e-4 or differ or \
+                    len(rec["card"]) != calls or \
+                    not dropped.get("policy") or \
+                    launches["spa_attention"] != want_fwd or \
+                    launches["spa_attention_bwd"] != want_bwd:
+                fail(f"moe train parity: card and CPU disagree: {line}")
+    finally:
+        moe._route, moe._dispatch_slots = route, dispatch
     return lines
 
 
@@ -2824,7 +3194,7 @@ def main() -> None:
     emit({**mla_train, "card": smi})
     gc.collect()
     torch.cuda.empty_cache()
-    # phase 17: deepseek-v2-lite as published (MLA + MoE), last: every
+    # phase 17: deepseek-v2-lite as published (MLA + MoE): every
     # earlier model, engine and pool is freed
     moe_lines = []
     for line in moe_serve(torch, np, dev, args.seed, smi):
@@ -2834,6 +3204,16 @@ def main() -> None:
         emit({**line, "card": smi})
     moe_runs = {(ln["phase"], ln.get("drain_interval")): ln
                 for ln in moe_lines}
+    del moe_lines
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 18: GRPO training of deepseek-v2-lite with its MoE on, last
+    for line in moe_train(torch, np, dev, args.seed, smi):
+        emit(line)
+        if line["phase"] == "moe_train":
+            moe_trained = line["launches"]
+    for line in moe_train_parity(torch, np, dev, args.seed):
+        emit({**line, "card": smi})
 
     # the training run's launches, each kernel timed at that run's shapes
     meta = {
@@ -2855,6 +3235,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": train["launches"][name],
          "launches_serve": launches.get(name, 0),
+         **({"launches_moe_train": moe_trained[name]}
+            if name == "transfer_cast" else {}),
          **{key: c[key] for key in timing},
          **({"bf16_prefill": {key: prefill[name][key] for key in timing}}
             if name in prefill else {})}
@@ -2882,11 +3264,14 @@ def main() -> None:
         "suffix_prefill": {"launches": mla_radix["runs"][0]["launches"][
             "paged_mla_verify_attention"]}}
     # phase 17's launches on deepseek-v2-lite as published: decode at D 1
-    # and D 8, verify with spec on, suffix prefills (spec off) beside them
+    # and D 8, verify with spec on, suffix prefills (spec off) beside them;
+    # phase 18's training rollouts beside the decode ones
     moe_launched = {
         "paged_mla_decode_attention": {
-            f"moe_serve_d{d}": moe_runs["moe_serve", d]["launches"][
+            **{f"moe_serve_d{d}": moe_runs["moe_serve", d]["launches"][
                 "paged_mla_decode_attention"] for d in (1, 8)},
+            # phase 18: the training engine's f32 rollouts
+            "moe_train": moe_trained["paged_mla_decode_attention"]},
         "paged_mla_verify_attention": {
             "moe_spec_serve": moe_runs["moe_spec_serve", 1]["launches"][
                 "paged_mla_verify_attention"],

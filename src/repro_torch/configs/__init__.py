@@ -4,8 +4,7 @@ Only the architectures the port runs in some form are registered;
 ``get_config`` raises on every other id of the JAX registry. The two MoE
 configs are registered as published: deepseek-v2-lite (MLA, 64 experts
 top-6, 2 shared, one dense prelude layer) is served at full width,
-qwen3-moe (GQA, 128 experts top-8) in its reduced form; the support
-matrix refuses training either.
+qwen3-moe (GQA, 128 experts top-8) in its reduced form; both train.
 """
 from __future__ import annotations
 

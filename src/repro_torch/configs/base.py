@@ -2,7 +2,7 @@
 
 ``ModelConfig`` keeps the fields the ported paths read plus the capability
 fields the support matrix needs to reject what the port does not run yet
-(MoE training, SSM/hybrid, enc-dec, VLM, sliding windows). ``RLConfig``
+(SSM/hybrid, enc-dec, VLM, sliding windows). ``RLConfig``
 keeps the fields the periodic-async GRPO pipeline reads.
 """
 from __future__ import annotations
@@ -39,7 +39,7 @@ class ModelConfig:
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
 
-    # MoE (served; its training is refused by engine_support) --------------
+    # MoE (served and trained) -----------------------------------------------
     num_experts: int = 0                   # 0 -> dense FFN
     num_experts_per_tok: int = 0
     num_shared_experts: int = 0
@@ -92,9 +92,9 @@ _NOT_YET = "not ported to PyTorch yet (ROADMAP.md Queue 1)"
 def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
     """(supported, reason) for running ``cfg`` on ``engine`` in the port:
     the paged engine serves GQA and MLA attention, each with a dense or a
-    MoE feed-forward; the spec plane and the prefix plane ride on it for
-    all four, and training (the ``"train"`` plane, which ``build_pipeline``
-    asks) for the dense two; every other family waits for later slices."""
+    MoE feed-forward; the spec plane, the prefix plane and training (the
+    ``"train"`` plane, which ``build_pipeline`` asks) ride on it for all
+    four; every other family waits for later slices."""
     if engine in _PLANES:
         ok, reason = engine_support(cfg, "paged")
         if not ok:
@@ -109,9 +109,9 @@ def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
             return True, (f"cached {kind} prompt pages are shared across "
                           "requests" + moe)
         if cfg.is_moe:
-            return False, ("MoE training needs the router's auxiliary "
-                           "load-balance loss in the grad step, which is "
-                           + _NOT_YET)
+            return True, ("the router's auxiliary load-balance loss joins "
+                          "the GRPO loss and trains the router, as in the "
+                          "JAX package" + moe)
         if cfg.use_mla:
             return True, ("MLA's expanded attention trains through "
                           "autograd, as the JAX package's does")

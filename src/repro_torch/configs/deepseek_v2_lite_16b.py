@@ -4,9 +4,9 @@
 vocab=102400, 64 routed experts top-6 + 2 shared, first layer dense
 (d_ff=10944). MLA: qk_nope=128, qk_rope=64, v_head=128 (no q-LoRA in lite).
 
-The port serves it as published (MoE on); ``mla_dense`` in the README is
-the same model with its six MoE fields zeroed, which the port also trains.
-``engine_support`` refuses training with MoE on.
+The port serves and trains it as published (MoE on, the router trained by
+its auxiliary load-balance loss); ``mla_dense`` in the README is the same
+model with its six MoE fields zeroed.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -7,7 +7,9 @@ pipeline (paper Figure 1), the counterpart of ``src/repro/launch/train.py``.
                           |  WeightTransferService (bucketed, versioned)
 
 Usage (full-width llama3.2-3b cut to 12 layers, f32, on the GPU;
-``--device cpu --reduced`` for the 2-layer variant on the CPU):
+``--device cpu --reduced`` for the 2-layer variant on the CPU;
+``--arch deepseek-v2-lite-16b --layers 3`` trains the MoE model, its
+dense prelude and 2 MoE layers, on one card):
     PYTHONPATH=src python -m repro_torch.launch.train --layers 12 \\
         --mode async --iterations 3 --batch-prompts 4 --group-size 8 \\
         --spa --wire-dtype bfloat16

@@ -42,10 +42,26 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     return h @ params["w_down"]
 
 
+_FREQS: dict = {}
+
+
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    half = head_dim // 2
-    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
-                                         device=device) / half))
+    """(head_dim / 2,) f32 rotary frequencies, computed on the CPU and
+    copied to ``device`` once (cached per device): every device rotates
+    by the same angles. A pow on the card may round a frequency an ulp
+    away from the CPU's, and an SPA padding token sits at position
+    2^30 - 1, where one ulp of a frequency turns its angle by O(1) and
+    gives it another hidden state, which a MoE layer routes. The first call
+    on a device runs before any capture (a captured step's eager warm-up
+    makes it), so a captured step only reads the cached tensor."""
+    key = (head_dim, float(theta), torch.device(device))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        half = head_dim // 2
+        freqs = (1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32)
+                                  / half))).to(device)
+        _FREQS[key] = freqs
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float

@@ -62,17 +62,21 @@ def capacity(num_tokens: int, cfg: ModelConfig) -> int:
 def _route(params: dict, cfg: ModelConfig, xf: torch.Tensor,
            want_aux: bool):
     """xf: (T, d) -> (top_p (T, K) f32, top_i (T, K) int64, (me, ce) or
-    None). The router runs in f32; top-K is a stable descending sort, so
+    None). The router runs in its own dtype (f32, as ``init_moe`` keeps
+    it, whatever the activations'); top-K is a stable descending sort, so
     of equal probabilities the lower expert index comes first, as
     ``lax.top_k`` orders them (a zero router makes every row a tie)."""
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = xf.shape[0]
-    probs = torch.softmax(xf.float() @ params["router"], dim=-1)
+    router = params["router"]
+    probs = torch.softmax(xf.to(router.dtype) @ router, dim=-1)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :K], top_i[:, :K]
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     if not want_aux:
         return top_p, top_i, None
+    # me carries the aux loss's gradient into the router; ce, a count, and
+    # the sort's indices carry none, as jnp.bincount's and lax.top_k's
     me = probs.mean(dim=0)                                     # (E,)
     # a fixed-length count (bincount sizes its output from the data)
     ce = torch.zeros((E,), dtype=torch.float32, device=xf.device)
@@ -140,7 +144,10 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     """x: (B, S, d) -> (y (B, S, d), aux loss or None). C is sized from
     ``capacity_tokens`` when given, else from the call's B x S tokens. The
     auxiliary load-balance loss (E x sum(me x ce) x coef) is computed only
-    with ``want_aux``: serving never reads it."""
+    with ``want_aux`` (the grad step's policy forward); serving and the
+    no-grad old and reference forwards never read it. Its gradient reaches
+    the router through ``me``; the outputs' through ``top_p``, the sorted
+    probabilities, whose indices, slots and keep mask carry none."""
     B, S, d = x.shape
     E = cfg.num_experts
     T = B * S

@@ -137,16 +137,21 @@ def blocks(params: dict, cfg: ModelConfig):
         yield layer(params["layers"], i)
 
 
-def _block_hidden(bp: dict, cfg: ModelConfig, x, positions, segments):
-    return block_forward(bp, cfg, x, positions, segments)[0]
+def _block_hidden(bp: dict, cfg: ModelConfig, x, positions, segments,
+                  want_aux: bool):
+    x, _, aux = block_forward(bp, cfg, x, positions, segments,
+                              want_aux=want_aux)
+    return x, aux
 
 
 def block_forward(bp: dict, cfg: ModelConfig, x, positions, segments, *,
                   cache: Optional[dict] = None, cache_offset=None,
-                  page_table=None, capacity_tokens: Optional[int] = None):
+                  page_table=None, capacity_tokens: Optional[int] = None,
+                  want_aux: bool = False):
     """Pre-norm attention (GQA or MLA) + SwiGLU or MoE block. Returns
-    (x_out, cache). ``capacity_tokens`` sizes a MoE layer's expert
-    capacity (``moe.moe_ffn``)."""
+    (x_out, cache, aux): ``aux`` is a MoE layer's load-balance loss when
+    ``want_aux``, else None (a dense block has none). ``capacity_tokens``
+    sizes a MoE layer's expert capacity (``moe.moe_ffn``)."""
     h = rmsnorm(bp["ln1"]["scale"], x, cfg.norm_eps)
     attn_out, kv = attention(
         bp["attn"], cfg, h, positions, segments,
@@ -154,18 +159,21 @@ def block_forward(bp: dict, cfg: ModelConfig, x, positions, segments, *,
         cache_offset=cache_offset, page_table=page_table)
     x = x + attn_out
     h2 = rmsnorm(bp["ln2"]["scale"], x, cfg.norm_eps)
+    aux = None
     if "moe" in bp:
-        x = x + moe_ffn(bp["moe"], cfg, h2,
-                        capacity_tokens=capacity_tokens)[0]
+        y, aux = moe_ffn(bp["moe"], cfg, h2, capacity_tokens=capacity_tokens,
+                         want_aux=want_aux)
+        x = x + y
     else:
         x = x + mlp(bp["mlp"], h2)
-    return x, None if kv is None else {"kv": kv}
+    return x, None if kv is None else {"kv": kv}, aux
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                    positions=None, segments=None, caches=None,
                    cache_offset=None, page_table=None,
-                   capacity_tokens: Optional[int] = None):
+                   capacity_tokens: Optional[int] = None,
+                   want_aux: bool = False):
     """Token ids (B, S) -> final hidden states (B, S, d).
 
     ``caches`` (dense prefill caches or the paged pool, stacked over
@@ -174,7 +182,10 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``jax.checkpoint`` does in the JAX package: the backward recomputes the
     layer's forward instead of keeping its activations. MoE layers size
     their expert capacity from ``capacity_tokens`` when given, else from
-    the call's B x S tokens. Returns (hidden, caches)."""
+    the call's B x S tokens. Returns (hidden, caches), and with
+    ``want_aux`` (hidden, caches, aux): the MoE layers' load-balance
+    losses summed in f32 from 0 in forward order, the prelude's first, as
+    the JAX ``forward_hidden`` sums them (0 for a dense model)."""
     B, S = tokens.shape
     x = embed(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     if positions is None:
@@ -184,19 +195,25 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         segments = torch.zeros((B, S), dtype=torch.int32, device=tokens.device)
     positions = positions.to(torch.int32).contiguous()
     segments = segments.to(torch.int32).contiguous()
-    if cfg.remat and caches is None and torch.is_grad_enabled():
-        for bp in blocks(params, cfg):
-            # the block draws no random numbers: no RNG state to keep
-            x = checkpoint(_block_hidden, bp, cfg, x, positions, segments,
-                           use_reentrant=False, preserve_rng_state=False)
-        return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), caches
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device) \
+        if want_aux else None
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i, bp in enumerate(blocks(params, cfg)):
-        x, _ = block_forward(
-            bp, cfg, x, positions, segments,
-            cache=None if caches is None else layer(caches["layers"], i),
-            cache_offset=cache_offset, page_table=page_table,
-            capacity_tokens=capacity_tokens)
-    return rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps), caches
+        if remat:
+            # the block draws no random numbers: no RNG state to keep
+            x, aux = checkpoint(_block_hidden, bp, cfg, x, positions,
+                                segments, want_aux, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, _, aux = block_forward(
+                bp, cfg, x, positions, segments,
+                cache=None if caches is None else layer(caches["layers"], i),
+                cache_offset=cache_offset, page_table=page_table,
+                capacity_tokens=capacity_tokens, want_aux=want_aux)
+        if aux is not None:
+            aux_total = aux_total + aux
+    h = rmsnorm(params["final_norm"]["scale"], x, cfg.norm_eps)
+    return (h, caches, aux_total) if want_aux else (h, caches)
 
 
 def _stacked(cfg: ModelConfig, one: dict) -> dict:

@@ -13,6 +13,7 @@ Loss (PPO-clip + k3 KL penalty, paper Eq. 1 / Table 8):
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RLConfig
 from repro_torch.models import forward_hidden, token_logprobs
-from repro_torch.models.transformer import layer
+from repro_torch.models.transformer import layer, num_prelude
 from repro_torch.optim.adam import adam_update
 
 
@@ -65,10 +66,15 @@ def group_advantages(rewards, eps: float = 1e-4) -> torch.Tensor:
     return (r - r.mean()) / (r.std(correction=0) + eps)
 
 
-def _model_logprobs(params, cfg: ModelConfig, mb: MicroBatch) -> torch.Tensor:
-    h, _ = forward_hidden(params, cfg, mb.tokens, positions=mb.positions,
-                          segments=mb.segments)
-    return token_logprobs(params, cfg, h, mb.labels)
+def _model_logprobs(params, cfg: ModelConfig, mb: MicroBatch, *,
+                    want_aux: bool = False):
+    """Per-token log-probs (m, S); with ``want_aux`` (log-probs, the
+    forward's summed MoE load-balance loss). Capacity is sized from the
+    micro-batch's m x S tokens, as in the JAX grad step."""
+    out = forward_hidden(params, cfg, mb.tokens, positions=mb.positions,
+                         segments=mb.segments, want_aux=want_aux)
+    logp = token_logprobs(params, cfg, out[0], mb.labels)
+    return (logp, out[2]) if want_aux else logp
 
 
 def trimodel_ref_old_logprobs(old_params, ref_params, cfg: ModelConfig,
@@ -81,8 +87,10 @@ def trimodel_ref_old_logprobs(old_params, ref_params, cfg: ModelConfig,
 
 def grpo_loss(policy_params, cfg: ModelConfig, rl: RLConfig, mb: MicroBatch,
               logp_old, logp_ref):
-    """Returns (loss, metrics); metrics are 0-d tensors."""
-    logp = _model_logprobs(policy_params, cfg, mb)
+    """Returns (loss, metrics); metrics are 0-d tensors. The loss carries
+    the policy forward's MoE load-balance loss (0 for a dense model), which
+    trains the routers as in the JAX package."""
+    logp, aux = _model_logprobs(policy_params, cfg, mb, want_aux=True)
     ratio = torch.exp(logp - logp_old)
     clipped = torch.clamp(ratio, 1.0 - rl.clip_eps_low, 1.0 + rl.clip_eps_high)
     adv = mb.advantages
@@ -91,31 +99,34 @@ def grpo_loss(policy_params, cfg: ModelConfig, rl: RLConfig, mb: MicroBatch,
     kl = torch.exp(d) - d - 1.0
     per_tok = surr - rl.kl_coef * kl
     j = (per_tok * mb.loss_mask).sum() / max(float(mb.n_samples), 1.0)
-    loss = -j
+    loss = -j + aux
     hard_mask = (mb.loss_mask > 0).float()
     denom = torch.clamp(hard_mask.sum(), min=1.0)
     metrics = {
         "loss": loss.detach(),
         "kl": ((kl * hard_mask).sum() / denom).detach(),
         "ratio_mean": ((ratio * hard_mask).sum() / denom).detach(),
-        "aux": torch.zeros((), device=loss.device),
+        "aux": aux.detach(),
         "n_tokens": hard_mask.sum(),
     }
     return loss, metrics
 
 
-def _per_layer_leaves(params: dict, num_layers: int):
-    """Leaves to differentiate: every top-level leaf detached, and the
-    stacked layer tree split into one dict of detached views per layer, so
-    each layer's gradient is its own tensor (a gradient through the views
-    of one stacked leaf would materialise a full-size zero tensor per
+def _per_layer_leaves(params: dict, cfg: ModelConfig):
+    """Leaves to differentiate: every top-level leaf detached, and each
+    stacked layer tree (the dense ``prelude``'s ``num_prelude`` layers and
+    the ``layers`` body's rest) split into one dict of detached views per
+    layer, so each layer's gradient is its own tensor: a gradient through
+    the views of one stacked leaf would materialise a full-size zero
+    tensor per layer (an f32 deepseek-v2-lite expert leaf holds 738 MB a
     layer). No parameter is copied."""
     def detach(tree):
         return {k: detach(v) if isinstance(v, dict)
                 else v.detach().requires_grad_() for k, v in tree.items()}
-    layers = [detach(layer(params["layers"], i)) for i in range(num_layers)]
-    return {**{k: detach(v) for k, v in params.items() if k != "layers"},
-            "layers": layers}
+    n_pre = num_prelude(cfg)
+    counts = {"prelude": n_pre, "layers": cfg.num_layers - n_pre}
+    return {k: [detach(layer(v, i)) for i in range(counts[k])]
+            if k in counts else detach(v) for k, v in params.items()}
 
 
 def _flat(tree):
@@ -130,31 +141,37 @@ def _flat(tree):
 
 
 def _stacked_grads(leaves: dict, grads: list) -> dict:
-    """The gradient tree in the parameters' layout (layers stacked again)."""
-    it = iter(grads)
+    """The gradient tree in the parameters' layout (the prelude and the
+    body stacked again). Given the deque it pops from, each per-layer
+    gradient is dropped once its leaf is stacked: the gradient is held
+    once, plus one stacked leaf, where a list would hold it twice."""
+    if not isinstance(grads, collections.deque):
+        grads = collections.deque(grads)
 
     def rebuild(tree):
         if isinstance(tree, list):
-            per = [rebuild(t) for t in tree]
-            return _stack(per)
+            return _stack([rebuild(t) for t in tree])
         if isinstance(tree, dict):
             return {k: rebuild(tree[k]) for k in sorted(tree)}
-        return next(it)
+        return grads.popleft()
     return rebuild(leaves)
 
 
 def _stack(per_layer: list):
+    """Stacks per-layer trees leaf by leaf, emptying them as it goes."""
     if isinstance(per_layer[0], dict):
-        return {k: _stack([p[k] for p in per_layer]) for k in per_layer[0]}
+        return {k: _stack([p.pop(k) for p in per_layer])
+                for k in list(per_layer[0])}
     return torch.stack(per_layer)
 
 
 def _value_and_grad(policy_params, cfg, rl, mb, logp_old, logp_ref):
-    leaves = _per_layer_leaves(policy_params, cfg.num_layers)
+    leaves = _per_layer_leaves(policy_params, cfg)
     with torch.enable_grad():
         loss, metrics = grpo_loss(leaves, cfg, rl, mb, logp_old, logp_ref)
-        grads = torch.autograd.grad(loss, list(_flat(leaves)))
-    return _stacked_grads(leaves, list(grads)), metrics
+        grads = collections.deque(
+            torch.autograd.grad(loss, list(_flat(leaves))))
+    return _stacked_grads(leaves, grads), metrics
 
 
 def make_grad_step(cfg: ModelConfig, rl: RLConfig):

@@ -973,6 +973,8 @@ def _reduced_pipeline(dev, batch_prompts=2, arch="llama", **over):
     from repro_torch.launch.train import build_pipeline
     from repro_torch.models import init
     cfg = (_reduced_mla_dense() if arch == "mla_dense"
+           else reduced_config(get_config("deepseek-v2-lite-16b"))
+           if arch == "deepseek_moe"
            else reduced_config(get_config("llama3.2-3b")))
     kw = dict(mode="async", batch_prompts=batch_prompts, group_size=4,
               num_inference_instances=1, max_prompt_len=24,
@@ -1041,7 +1043,7 @@ def test_no_engine_kernel_runs_off_its_stream(dev, arch):
         3 * L * sched.captured_micro_steps
 
 
-@pytest.mark.parametrize("arch", ["llama", "mla_dense"])
+@pytest.mark.parametrize("arch", ["llama", "mla_dense", "deepseek_moe"])
 def test_async_training_on_card_matches_cpu(dev, arch):
     """A reduced async run, one group per iteration (a fixed accumulation
     order), on the card (two streams, kernels) and on the CPU: the same
@@ -1232,3 +1234,128 @@ def test_reduced_moe_engine_on_card_matches_cpu(dev, arch):
                              **kw, **over)
         assert [c.response_ids.tolist() for c in gpu] == \
             [c.response_ids.tolist() for c in cpu]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_training_engine_graph_matches_plain(dev, arch):
+    """The f32 MoE training engine (reduced, 4 experts top-2; G 4 rows a
+    group, sampled at temperature 1, captured logprobs): the card's
+    captured decode block gives the CPU engine's rows (its eager step, the
+    plain kernel versions), logprobs within 1e-4, and every decode step
+    launched the paged decode kernel once a layer."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.paged import PagedGroupEngine
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import init
+    cfg = reduced_config(get_config(arch))
+    p_cpu = init(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(3, 500, size=(n,)).astype(np.int32)
+               for n in (7, 20, 13)]
+    kw = dict(num_slots=8, page_size=16, num_pages=0, max_prompt_len=24,
+              max_new_tokens=12, group_size=4, temperature=1.0)
+    step = ("paged_mla_decode_attention" if cfg.use_mla
+            else "paged_decode_attention")
+    out = []
+    for where in (dev, "cpu"):
+        eng = PagedGroupEngine(cfg, device=where, **kw)
+        eng.set_params(p_cpu if where == "cpu" else _to_dev(p_cpu, dev))
+        reset_launch_counts()
+        hs = [eng.submit(p, (0, i)) for i, p in enumerate(prompts)]
+        while eng.step():
+            pass
+        torch.cuda.synchronize()
+        if where != "cpu":
+            assert eng.graph_replays == eng.decode_steps > 0
+            assert LAUNCHES[step] == cfg.num_layers * eng.decode_steps
+        out.append([h.result(0) for h in hs])
+    for a, b in zip(*out):
+        assert torch.equal(a.response_ids, b.response_ids)
+        torch.testing.assert_close(a.response_logprobs, b.response_logprobs,
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_captured_grad_step_on_card_matches_cpu(dev, arch, monkeypatch):
+    """A reduced MoE config's captured grad step on an SPA-packed row,
+    with every token routed to experts 0 and 1 first, so that each MoE
+    forward drops pairs: the card against the CPU on the same micro-batch,
+    loss and aux within 1e-5 relative, every gradient leaf within 2e-4 of
+    its largest entry, the same pairs dropped, and for qwen3-moe's GQA the
+    SPA backward kernel launched once a layer."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.queue import RolloutGroup
+    from repro_torch.core.spa import pack_spa
+    from repro_torch.models import init, moe
+    from repro_torch.rl.grpo import make_grad_step_captured, to_device
+    cfg = reduced_config(get_config(arch))
+    rng = np.random.RandomState(2)
+    G, Lp, T = 4, 20, 16
+    lens = rng.randint(3, T + 1, size=G).astype(np.int32)
+    resp = np.zeros((G, T), np.int32)
+    for g in range(G):
+        resp[g, :lens[g]] = rng.randint(3, 500, size=lens[g])
+    group = RolloutGroup(uid=0, prompt_ids=rng.randint(3, 500, size=Lp)
+                         .astype(np.int32), response_ids=resp,
+                         response_len=lens, rewards=np.zeros(G, np.float32),
+                         weight_version=0,
+                         response_logprobs=-rng.rand(G, T).astype(np.float32))
+    mb = pack_spa(group, rng.randn(G).astype(np.float32), Lp, T,
+                  responses_per_row=G)
+    p_cpu = init(cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        p_cpu["embed"]["embedding"][:, 0] += 10.0
+        router = p_cpu["layers"]["moe"]["router"]
+        router[:, 0, :] = 0.0
+        router[:, 0, 0], router[:, 0, 1] = 1.0, 0.5
+    r_cpu = init(cfg, seed=1, device="cpu")
+    r_cpu["embed"] = p_cpu["embed"]
+    r_cpu["layers"]["moe"]["router"] = p_cpu["layers"]["moe"]["router"]
+    keeps = []
+    dispatch = moe._dispatch_slots
+
+    def recording(top_i, E, C):
+        slot, keep = dispatch(top_i, E, C)
+        keeps.append(keep.cpu())
+        return slot, keep
+    monkeypatch.setattr(moe, "_dispatch_slots", recording)
+    step = make_grad_step_captured(cfg, RLConfig())
+    n0 = LAUNCHES["spa_attention_bwd"]
+    g_gpu, m_gpu = step(_to_dev(p_cpu, dev), None, _to_dev(r_cpu, dev),
+                        to_device(mb, dev))
+    torch.cuda.synchronize()
+    assert LAUNCHES["spa_attention_bwd"] == n0 + (0 if cfg.use_mla
+                                                  else cfg.num_layers)
+    n_card = len(keeps)
+    g_cpu, m_cpu = step(p_cpu, None, r_cpu, to_device(mb, "cpu"))
+    assert len(keeps) == 2 * n_card > 0
+    for a, b in zip(keeps[:n_card], keeps[n_card:]):
+        assert torch.equal(a, b)
+    assert all(int((~k).sum()) > 0 for k in keeps)
+    for k in ("loss", "aux"):
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-5,
+                                   atol=0)
+    for a, b in zip(_leaves(g_gpu), _leaves(g_cpu)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 2e-4 * float(b.abs().max()), err
+
+
+@pytest.mark.parametrize("head_dim,theta", [(16, 1e4), (64, 1e4), (64, 5e5),
+                                            (128, 5e5), (128, 1e6)])
+def test_rope_angles_equal_on_card_and_cpu(dev, head_dim, theta):
+    """Rotary frequencies are made on the CPU and copied: the card's are
+    the CPU's bitwise, so an SPA padding token or an idle row (positions
+    2^30 - 1 and 2^30, where an ulp of a frequency turns the angle by
+    O(1)) is rotated alike on both, and a MoE layer routes it alike."""
+    from repro_torch.models.layers import apply_rope, rope_freqs
+    assert torch.equal(rope_freqs(head_dim, theta, dev).cpu(),
+                       rope_freqs(head_dim, theta, "cpu"))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(1, 4, 2, head_dim).astype(np.float32))
+    pos = torch.tensor([[0, 77, 2 ** 30 - 1, 2 ** 30]], dtype=torch.int32)
+    got = apply_rope(x.to(dev), pos.to(dev), theta).cpu()
+    torch.testing.assert_close(got, apply_rope(x, pos, theta), atol=1e-5,
+                               rtol=1e-5)

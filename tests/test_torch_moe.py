@@ -211,8 +211,8 @@ def test_capacity_and_aux_only_when_asked():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_jax(arch):
     """Every field both configs have agrees, full and reduced, and the
-    support matrix serves MoE on the paged engine and both planes but
-    refuses its training, naming the router's aux loss."""
+    support matrix serves MoE on the paged engine and both planes and
+    trains it, naming the router's aux loss."""
     for jcfg, cfg in ((jax_get_config(arch), get_config(arch)),
                       _configs(arch)):
         shared = ({f.name for f in dataclasses.fields(cfg)}
@@ -225,7 +225,7 @@ def test_configs_match_jax(arch):
             ok, reason = engine_support(cfg, plane)
             assert ok and "MoE" in reason, (plane, reason)
         ok, reason = engine_support(cfg, "train")
-        assert not ok and "aux" in reason
+        assert ok and "aux" in reason, reason
 
 
 def test_convert_round_trips_the_moe_trees(setup):

@@ -16,7 +16,8 @@ from repro.configs import reduced_config as jax_reduced  # noqa: E402
 from repro.core.paged import PagedGroupEngine as JaxEngine  # noqa: E402
 from repro.models import init as jax_init  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
-from repro_torch.configs.base import require_engine_support  # noqa: E402
+from repro_torch.configs.base import (engine_support,  # noqa: E402
+                                     require_engine_support)
 from repro_torch.convert import from_jax  # noqa: E402
 from repro_torch.core.paged import PageAllocator, PagedGroupEngine  # noqa: E402
 
@@ -111,11 +112,14 @@ def test_engine_rejects_unported_configs(change, match):
         cfg = dataclasses.replace(cfg, sliding_window=32,
                                   use_mla=change == "mla_window")
     elif change == "moe":
-        # MoE is served; what the port still refuses is its training
+        # MoE is served and trained; a sliding window still is not
         cfg = dataclasses.replace(cfg, num_experts=4, num_experts_per_tok=2,
                                   moe_d_ff=128)
         PagedGroupEngine(cfg, device="cpu", **kw)
-        with pytest.raises(ValueError, match=match):
+        ok, reason = engine_support(cfg, "train")
+        assert ok and match in reason and "aux" in reason, reason
+        cfg = dataclasses.replace(cfg, sliding_window=32)
+        with pytest.raises(ValueError, match="sliding-window"):
             require_engine_support(cfg, "train")
         return
     else:

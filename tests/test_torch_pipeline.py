@@ -7,8 +7,10 @@ torch), strict on-policy consumption, and the parameter trajectory of the
 JAX ``build_pipeline`` on the same weights and rollouts. A paged-engine
 run (with spec decode and the radix cache riding along for MLA) and the
 train CLI complete on the reduced model. The model-level tests run on
-reduced llama3.2-3b and reduced ``mla_dense`` (deepseek-v2-lite with MoE
-off).
+reduced llama3.2-3b, reduced ``mla_dense`` (deepseek-v2-lite with MoE
+off) and reduced deepseek-v2-lite with MoE on (a dense prelude layer and
+a MoE layer whose router the aux loss trains); the train CLI also trains
+both reduced MoE arches.
 """
 import json
 
@@ -85,8 +87,9 @@ def _rl(mode: str, **kw) -> RLConfig:
     return RLConfig(**base)
 
 
-# the reduced configs of the two trained families, built by each package
-ARCHS = {"llama": lambda get: get("llama3.2-3b"), "mla_dense": mla_dense}
+# the reduced configs of the trained families, built by each package
+ARCHS = {"llama": lambda get: get("llama3.2-3b"), "mla_dense": mla_dense,
+         "deepseek_moe": lambda get: get("deepseek-v2-lite-16b")}
 
 
 # Adam's step lr * g / (|g| + 1e-8) is eps-dominated where a gradient is
@@ -98,7 +101,8 @@ ARCHS = {"llama": lambda get: get("llama3.2-3b"), "mla_dense": mla_dense}
 # an element whose two gradients differ and both lie below NEAR_ZERO of
 # their leaf's largest JAX gradient in some step to lr instead, and such
 # elements must be at most MAX_NEAR_ZERO of the tree (515 of 1.29 M here).
-# llama keeps the bar on every element.
+# The rule follows MLA attention, so reduced deepseek-v2-lite with MoE on
+# takes it too; llama keeps the bar on every element.
 NEAR_ZERO = 1e-6
 MAX_NEAR_ZERO = 1e-3
 
@@ -149,7 +153,7 @@ def _record_grads(sched, to_np):
 
 def _at(tree, path):
     for p in path:
-        tree = tree[p.key]
+        tree = tree[p.key if hasattr(p, "key") else p.idx]
     return np.asarray(tree)
 
 
@@ -261,7 +265,9 @@ def test_paged_engine_pipeline_on_cpu(cfg):
     def probe(params, version):
         v = ensure(params, version)
         pool = parts["pool"].instances[0].store.snapshot()[0]
-        flips.append(all(torch.equal(p, q.to(torch.bfloat16).float())
+        # every leaf lands in its storage dtype (the MoE router f32)
+        flips.append(all(p.dtype == q.dtype and
+                         torch.equal(p, q.to(torch.bfloat16).float())
                          for p, q in zip(_leaves(pool), _leaves(params))))
         return v
     sched.transfer.ensure = probe
@@ -301,3 +307,17 @@ def test_train_cli_on_cpu(capsys, tmp_path):
     assert "iter 1:" in text and "staleness=0" in text
     hist = json.loads(out.read_text())
     assert [h["iteration"] for h in hist] == [0, 1]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_train_cli_trains_moe_on_cpu(arch, capsys):
+    """The published MoE arches, reduced, through the train CLI: SPA rows,
+    captured logprobs and a bf16 wire, strictly on-policy."""
+    train.main(["--arch", arch, "--device", "cpu", "--reduced",
+                "--iterations", "2", "--batch-prompts", "2",
+                "--group-size", "4", "--spa", "--wire-dtype", "bfloat16",
+                "--max-prompt-len", "48", "--max-response-len", "8"])
+    text = capsys.readouterr().out
+    assert f"{arch}-smoke (2 layers" in text
+    assert text.count("staleness=0") == 2

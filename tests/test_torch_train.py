@@ -1,15 +1,19 @@
 """The port's training step against the JAX package's.
 
-Reduced llama3.2-3b and reduced ``mla_dense`` (deepseek-v2-lite with MoE
+Reduced llama3.2-3b, reduced ``mla_dense`` (deepseek-v2-lite with MoE
 off; 2 layers, d 256, f32; MLA's expanded attention trains through
-autograd in both packages): the JAX parameter tree is
+autograd in both packages), reduced deepseek-v2-lite with MoE on (one
+dense prelude layer + one MoE layer of 4 experts top-2 and 1 shared) and
+reduced qwen3-moe (GQA, 2 MoE layers): the JAX parameter tree is
 converted with ``repro_torch.convert`` and both packages run the same
 numpy-packed ``MicroBatch`` (plain rows and SPA-packed rows). Bars: loss
-and metrics within 1e-5 relative (MLA's loss within MLA_LOSS_ATOL, of
-JAX's and of the f64 loss), and every gradient leaf within 2e-4 of
-that leaf's largest JAX entry (f32 sums run in another order). Old and
-reference weights differ from the policy so the ratio, the clip and the
-KL term all carry gradient.
+and metrics (the MoE load-balance loss ``aux`` included) within 1e-5
+relative (MLA's loss within MLA_LOSS_ATOL, of JAX's and of the f64
+loss), and every gradient leaf within 2e-4 of that leaf's largest JAX
+entry (f32 sums run in another order). Old and reference weights differ
+from the policy so the ratio, the clip and the KL term all carry
+gradient. The MoE cases also run with a skewed router whose packed
+micro-batch drops (token, choice) pairs, and with ``router_aux_coef`` 1.
 """
 import dataclasses
 
@@ -43,13 +47,19 @@ from repro_torch.models import token_logprobs  # noqa: E402
 from repro_torch.optim.accumulate import GradAccumulator  # noqa: E402
 from repro_torch.optim.adam import adam_init, adam_update  # noqa: E402
 from repro_torch.rl import grpo  # noqa: E402
+from repro.models import moe as jax_moe  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from test_torch_mla import mla_dense  # noqa: E402
+from test_torch_moe import _skewed  # noqa: E402
 
 G, LP, T = 4, 16, 8
 
 
-# the reduced configs of the two trained families, built by each package
-ARCHS = {"llama": lambda get: get("llama3.2-3b"), "mla_dense": mla_dense}
+# the reduced configs of the trained families, built by each package
+ARCHS = {"llama": lambda get: get("llama3.2-3b"), "mla_dense": mla_dense,
+         "deepseek_moe": lambda get: get("deepseek-v2-lite-16b"),
+         "qwen3_moe": lambda get: get("qwen3-moe-235b-a22b")}
+MOE_ARCHS = ("deepseek_moe", "qwen3_moe")
 # the absolute bar of mla_dense's loss. Its recomputed loss here (0.0319)
 # is a sum of per-token terms near 1 that cancel (a group's advantages sum
 # to zero), so f32 rounds it by a few 1e-7 in either package: with SPA
@@ -78,20 +88,57 @@ def _f64_loss(monkeypatch, cfg, ttrees, mb, captured):
     return float(metrics["loss"])
 
 
-@pytest.fixture(scope="module", params=list(ARCHS))
-def setup(request):
-    jcfg = jax_reduced(ARCHS[request.param](jax_get_config))
-    cfg = reduced_config(ARCHS[request.param](get_config))
+def _make(arch, skew=False, **over):
+    """(jcfg, cfg, JAX trees, port trees) of policy, old and ref; ``skew``
+    routes every token of the policy to experts 0 and 1 first
+    (``test_torch_moe._skewed``), and old and ref with it."""
+    jcfg = dataclasses.replace(jax_reduced(ARCHS[arch](jax_get_config)),
+                               **over)
+    cfg = dataclasses.replace(reduced_config(ARCHS[arch](get_config)), **over)
     trees = []
     for seed in (0, 1, 2):           # policy, old, ref
         trees.append(jax.device_get(jax_init(jax.random.PRNGKey(seed), jcfg)))
     # old and ref near the policy, so ratios sit inside and outside the clip
-    policy = trees[0]
+    policy = _skewed(trees[0], jcfg) if skew else trees[0]
     old = jax.tree.map(lambda a, b: a + 0.05 * b, policy, trees[1])
     ref = jax.tree.map(lambda a, b: a + 0.05 * b, policy, trees[2])
     jtrees = [jax.tree.map(jnp.asarray, t) for t in (policy, old, ref)]
     ttrees = [from_jax(t, cfg, device="cpu") for t in (policy, old, ref)]
     return jcfg, cfg, jtrees, ttrees
+
+
+@pytest.fixture(scope="module", params=list(ARCHS))
+def setup(request):
+    return _make(request.param)
+
+
+@pytest.fixture
+def port_rope_freqs(monkeypatch):
+    """Hands the JAX package the port's rotary frequencies as constants.
+    Eager JAX computes the same f32 values, but a jitted step folds
+    theta ** x with another pow, an ulp away in some entries; an SPA
+    padding token sits at position 2^30 - 1, where that ulp turns its
+    angle by O(1). Padding carries no loss, but a MoE layer routes it: its
+    router probabilities enter the aux loss and its pairs take capacity."""
+    from repro.models import layers as jax_layers
+
+    def freqs(head_dim, theta):
+        return jnp.asarray(layers.rope_freqs(head_dim, theta, "cpu").numpy())
+    monkeypatch.setattr(jax_layers, "rope_freqs", freqs)
+
+
+def _no_drop(cfg, **over):
+    """A MoE config whose capacity holds every pair: with
+    ``capacity_factor`` E / K, C >= T, so no (token, choice) pair is
+    dropped and a token's output is its own whatever else its forward
+    routes. The properties below hold for MoE only then: a packed
+    micro-batch that drops gives another loss than per-sample rows, as
+    in the JAX package (held to JAX by ``test_moe_grad_step_*``)."""
+    if not cfg.is_moe:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok,
+        **over)
 
 
 def _groups(capture: bool):
@@ -118,30 +165,35 @@ def _packed(spa: bool, capture: bool):
             jax_pack_plain([jg], [adv], LP, T))
 
 
+def _key(p):
+    return p.key if hasattr(p, "key") else p.idx
+
+
 def _leaves_by_path(jtree):
-    return {tuple(p.key for p in path): np.asarray(leaf)
+    return {tuple(_key(p) for p in path): np.asarray(leaf)
             for path, leaf in jax.tree_util.tree_leaves_with_path(jtree)}
 
 
 def _assert_tree_close(got: dict, jtree, rel=2e-4):
+    """Every leaf of the port's tree ``got`` (taken to the JAX layout, the
+    prelude a list of layers) within ``rel`` of its JAX leaf's largest
+    entry."""
+    got = to_numpy(got)
     want = _leaves_by_path(jtree)
-    seen = 0
     for path, w in want.items():
         node = got
         for p in path:
             node = node[p]
-        g = node.detach().float().numpy() if torch.is_tensor(node) else node
-        assert g.shape == w.shape, path
+        assert node.shape == w.shape, path
         scale = max(float(np.abs(w).max()), 1e-30)
-        err = float(np.abs(g - w).max())
+        err = float(np.abs(node - w).max())
         assert err <= rel * scale, (path, err, scale)
-        seen += 1
-    assert seen == len(list(_flat(got)))
+    assert len(want) == len(jax.tree_util.tree_leaves(got))
 
 
 def _flat(tree):
-    for v in tree.values():
-        yield from (_flat(v) if isinstance(v, dict) else (v,))
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        yield from (_flat(v) if isinstance(v, (dict, list)) else (v,))
 
 
 def test_packers_match_jax():
@@ -172,7 +224,7 @@ def test_group_advantages_match_jax(rewards):
                                                          "captured"])
 @pytest.mark.parametrize("spa", [False, True], ids=["plain", "spa"])
 def test_grad_step_matches_jax_value_and_grad(setup, spa, captured,
-                                              monkeypatch):
+                                              monkeypatch, port_rope_freqs):
     jcfg, cfg, jtrees, ttrees = setup
     mb, jmb = _packed(spa, capture=captured)
     rl, jrl = RLConfig(), JaxRL()
@@ -181,7 +233,7 @@ def test_grad_step_matches_jax_value_and_grad(setup, spa, captured,
              else jgrpo.make_grad_step)
     grads, metrics = make(cfg, rl)(*ttrees, grpo.to_device(mb, "cpu"))
     jgrads, jmetrics = jmake(jcfg, jrl)(*jtrees, jgrpo.jaxify(jmb))
-    for k in ("loss", "kl", "ratio_mean", "n_tokens"):
+    for k in ("loss", "aux", "kl", "ratio_mean", "n_tokens"):
         atol = MLA_LOSS_ATOL if cfg.use_mla and k == "loss" else 1e-7
         np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
                                    rtol=1e-5, atol=atol, err_msg=k)
@@ -191,6 +243,83 @@ def test_grad_step_matches_jax_value_and_grad(setup, spa, captured,
             np.testing.assert_allclose(float(m["loss"]), loss64, rtol=1e-5,
                                        atol=MLA_LOSS_ATOL, err_msg=k)
     _assert_tree_close(grads, jgrads)
+    assert (float(metrics["aux"]) > 0) == cfg.is_moe
+
+
+def _drops(monkeypatch, run_port, run_jax):
+    """Pairs each MoE call drops in a port forward and in a JAX forward
+    (counted where each package's ``_dispatch_slots`` returns)."""
+    counts = {"port": [], "jax": []}
+    dispatch, jdispatch = moe._dispatch_slots, jax_moe._dispatch_slots
+
+    def port(top_i, E, C):
+        slot, keep = dispatch(top_i, E, C)
+        counts["port"].append(int((~keep).sum()))
+        return slot, keep
+
+    def jax_side(top_i, E, C):
+        slot, keep = jdispatch(top_i, E, C)
+        jax.debug.callback(lambda n: counts["jax"].append(int(n)),
+                           (~keep).sum())
+        return slot, keep
+    with monkeypatch.context() as m:
+        m.setattr(moe, "_dispatch_slots", port)
+        m.setattr(jax_moe, "_dispatch_slots", jax_side)
+        run_port()
+        run_jax()
+        jax.effects_barrier()
+    return counts["port"], counts["jax"]
+
+
+@pytest.mark.parametrize("case", ["skewed", "aux_coef_1"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_grad_step_matches_jax_with_drops_and_aux(arch, case,
+                                                      monkeypatch,
+                                                      port_rope_freqs):
+    """SPA-packed recompute step. ``skewed``: every token routes to
+    experts 0 and 1 first, so the packed row's 48 tokens overflow C = 32
+    and both packages drop the same 2 x 16 pairs in each MoE layer of the
+    policy forward. ``aux_coef_1``: with ``router_aux_coef`` 1 the aux
+    loss moves each router's gradient by more than the bar, and the step
+    still matches JAX."""
+    skew = case == "skewed"
+    over = {} if skew else {"router_aux_coef": 1.0}
+    jcfg, cfg, jtrees, ttrees = _make(arch, skew=skew, **over)
+    mb, jmb = _packed(spa=True, capture=False)
+    tmb = grpo.to_device(mb, "cpu")
+    grads, metrics = grpo.make_grad_step(cfg, RLConfig())(*ttrees, tmb)
+    jgrads, jmetrics = jgrpo.make_grad_step(jcfg, JaxRL())(
+        *jtrees, jgrpo.jaxify(jmb))
+    for k in ("loss", "aux", "kl", "ratio_mean", "n_tokens"):
+        atol = MLA_LOSS_ATOL if cfg.use_mla and k == "loss" else 1e-7
+        np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
+                                   rtol=1e-5, atol=atol, err_msg=k)
+    _assert_tree_close(grads, jgrads)
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    with torch.no_grad():
+        port, jx = _drops(
+            monkeypatch,
+            lambda: grpo._model_logprobs(ttrees[0], cfg, tmb),
+            lambda: jax_forward_hidden(jtrees[0], jcfg,
+                                       jnp.asarray(mb.tokens),
+                                       positions=jnp.asarray(mb.positions),
+                                       segments=jnp.asarray(mb.segments)))
+    assert port == jx and len(port) == n_moe
+    if skew:
+        C = moe.capacity(mb.tokens.size, cfg)
+        assert C == 32 and port == [2 * (mb.tokens.size - C)] * n_moe
+        return
+    _, cfg0, _, _ = _make(arch, router_aux_coef=0.0)
+    free, _ = grpo.make_grad_step(cfg0, RLConfig())(*ttrees, tmb)
+    want = _leaves_by_path(jgrads)
+    for path in want:
+        if path[-1] != "router":
+            continue
+        a, b = to_numpy(grads), to_numpy(free)
+        for p in path:
+            a, b = a[p], b[p]
+        bar = 2e-4 * float(np.abs(want[path]).max())
+        assert float(np.abs(a - b).max()) > bar, path
 
 
 def test_token_logprobs_and_backward_match_jax(setup):
@@ -206,7 +335,7 @@ def test_token_logprobs_and_backward_match_jax(setup):
         return (lp * cot).sum(), lp
     (_, jlp), jg = jax.value_and_grad(jax_fn, has_aux=True)(jtrees[0])
 
-    leaves = grpo._per_layer_leaves(ttrees[0], cfg.num_layers)
+    leaves = grpo._per_layer_leaves(ttrees[0], cfg)
     with torch.enable_grad():
         h, _ = forward_hidden(leaves, cfg, torch.from_numpy(tokens))
         lp = token_logprobs(leaves, cfg, h, torch.from_numpy(labels))
@@ -230,8 +359,13 @@ def test_remat_changes_no_gradient(setup):
 
 def test_spa_packed_gradient_equals_per_sample(setup):
     """grad(SPA-packed row) == grad(per-sample rows): the paper's exactness
-    claim (tests/test_spa.py), here for the port at f32."""
+    claim (tests/test_spa.py), here for the port at f32. A MoE config runs
+    with nothing dropped (``_no_drop``) and without the aux loss: its load
+    statistics average over the forward's tokens, which packing changes
+    (a per-sample row repeats the prompt), so the aux term is not
+    packing-invariant in either package."""
     _, cfg, _, ttrees = setup
+    cfg = _no_drop(cfg, router_aux_coef=0.0)
     p = ttrees[0]
     step = grpo.make_grad_step(cfg, RLConfig())
     g_plain, m_plain = step(p, p, p, grpo.to_device(_packed(False, False)[0],
@@ -247,8 +381,13 @@ def test_spa_packed_gradient_equals_per_sample(setup):
 def test_captured_step_equals_recompute(setup):
     """With captured logprobs equal to the old policy's (Proposition 1:
     rollout weights == old weights), the captured step's single reference
-    forward gives the recompute step's gradient (tests/test_capture.py)."""
+    forward gives the recompute step's gradient (tests/test_capture.py).
+    A MoE config runs with nothing dropped (``_no_drop``): a rollout's
+    captured logprobs come from decode steps that drop nothing, so they
+    equal the old-policy recompute only where the packed forward drops
+    nothing either."""
     _, cfg, _, (policy, old, ref) = setup
+    cfg = _no_drop(cfg)
     mb = grpo.to_device(_packed(spa=True, capture=False)[0], "cpu")
     with torch.no_grad():
         lp_old = grpo._model_logprobs(old, cfg, mb)
