@@ -233,6 +233,38 @@ The profile phases also time each replay with CUDA events
      MoE call's keep mask equal (excused only behind a flip at a K-th /
      (K+1)-th gap within 1e-5, counted), and qwen3-moe's SPA kernels
      launched by their formula.
+ 19. window_serve (last, after phase 18's trees are freed): the sliding
+     window on the paged plane. long_context_variant llama3.2-3b (window
+     8192; 28 layers, bf16, random weights from --seed, 4 slots, page
+     16, temperature 0.7, every request at t = 0), on an engine whose
+     pool is the windowed admission budget (FIRST_PAGE + each prompt's
+     window-visible pages + ``_row_budget``): (i) 4 prompts of 8,064 to
+     8,190 tokens, 256 new tokens, at D 1, D 8 and with spec k 4 (the
+     window slides mid-decode); (ii) 4 prompts of 32,768 tokens (the
+     decode_32k shape), 64 new tokens; each prints tok/s, TTFT and TPOT
+     p50/p99, peak memory, the pool's GiB against the full contexts',
+     reclaimed pages and the replayed step's device ms (CUDA events),
+     and checks reclaimed > 0, peak pages within the budget, every page
+     back, the launch formulas (SPA 28 x prefills, the decode kernel 28 x
+     decode steps, all replays, or the verify kernel 28 x verify steps),
+     and sampled tokens equal at D 1 and D 8; (iii) window_radix_serve: a
+     9,000-token system prompt and 8 suffixes of 16 to 256 tokens through
+     serve_shared, greedy: 1 cold and 7 warm prefills, hit pages from
+     each request's first live page, the tree's placeholders, launches,
+     then the same prompts cold: warm tokens equal cold ones (a
+     difference excused only at a tie within the card's own warm / cold
+     logit difference, at most WINDOW_LOGIT_TOL) and prompt logits within
+     it. Then window_kernel: the windowed decode kernel on a copy of the
+     engine's own pool and table at about 8.2k and 32.8k context
+     (decode step 128 of (i), 32 of (ii)), against its plain version,
+     with the plain version's time, a page gather + SDPA with the window
+     mask, and the bound of the window's K/V. Then long_context_variant
+     mla_dense (27 layers, no cut) on workload (i) at D 1 (the MLA decode
+     kernel 27 x decode steps), and window_parity: reduced windowed llama
+     and mla_dense (window 32, f32) on the card against the CPU, greedy:
+     tokens, reclaimed and peak pages equal at D 1 and D 3, spec off and
+     on, and radix warm tokens equal cold ones (card and CPU) where the
+     suffix's first query sees pages below its first live page.
 
 The SPA kernels run bf16 on the tensor cores (wgmma, with the
 probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
@@ -260,8 +292,10 @@ start to its end and to the last line of each phase, then one line
 {"kernels": [...]} with seven entries: the four kernels of
 the training path at the training run's shapes and launch counts (phase
 6; the two SPA entries also carry the bf16 1024-token prefill case, the
-serving shape, under "bf16_prefill"), paged_verify_attention at the spec
-shape with phase 8's launches (and the 512-token suffix prefill, phase
+serving shape, under "bf16_prefill"; the paged decode entry phase 19's
+windowed cases at 8k and 32k context with their D 1 runs' launches,
+"window_8k_context" and "window_32k_context"), paged_verify_attention
+at the spec shape with phase 8's launches (and the 512-token suffix prefill, phase
 9's path, under "suffix_prefill"),
 and the MLA kernel's decode case with phase 11's launches and its verify
 case with phase 12's (bf16, with the plan's splits and blocks; the long
@@ -3013,6 +3047,493 @@ def moe_train_parity(torch, np, dev, seed: int):
 
 # ---------------------------------------------------------------------
 
+# ---------------------------------------------------------------------
+# phase 19: the sliding window on the paged plane
+# ---------------------------------------------------------------------
+
+WINDOW_SLOTS, WINDOW_PAGE = 4, 16
+WINDOW_NEW = 256          # workload (i): the window slides mid-decode
+WINDOW_32K_NEW = 64       # workload (ii): the decode_32k context
+# decode steps after which the D 1 runs copy the decode kernel's inputs
+# (every slot busy): about 8.2k context in (i), 32.8k in (ii)
+WINDOW_SNAP_AT = {"i": 128, "ii": 32}
+DECODE_32K = 32768        # the decode_32k shape's seq_len (JAX configs)
+WINDOW_PROMPT_LENS = (8064, 8190)    # workload (i): 4 prompts between
+WINDOW_SYSTEM = 9000      # workload (iii): the shared system prompt
+# (iii): warm against cold bf16 logits (the warm suffix prefill runs the
+# paged verify kernel where the cold prefill runs SPA). An engine that
+# missed keys moves them by O(1) (0.47 on reduced llama on the CPU).
+WINDOW_LOGIT_TOL = 0.25
+
+
+def window_config(name: str):
+    """``long_context_variant`` of llama3.2-3b or of mla_dense (window
+    8192), at full width and depth, bf16."""
+    from repro_torch.configs import get_config, long_context_variant
+    base = mla_dense_config() if name == "mla_dense" else get_config(name)
+    return long_context_variant(base)
+
+
+def window_engine(cfg, dev, prompt_lens, max_new: int, **kw):
+    """A 4-slot serving engine (1-row groups, page 16, temperature 0.7
+    unless ``kw`` says otherwise) whose pool is the windowed admission
+    budget of ``prompt_lens``: FIRST_PAGE + the sum over the prompts of
+    their window-visible prompt pages + ``_row_budget``. Returns (engine,
+    budget pages, the pages the full contexts would take)."""
+    from repro_torch.core.paged import FIRST_PAGE, PagedGroupEngine
+    args = dict(num_slots=WINDOW_SLOTS, page_size=WINDOW_PAGE,
+                max_prompt_len=max(prompt_lens), max_new_tokens=max_new,
+                group_size=1, temperature=0.7, capture_logprobs=False,
+                device=dev)
+    args.update(kw)
+    probe = PagedGroupEngine(cfg, num_pages=0, **args)  # geometry only
+    budget = full = 0
+    for n in prompt_lens:
+        j0, n_pp = probe._prompt_page_range(n)
+        budget += n_pp - j0 + probe._row_budget(max_new)
+        full += n_pp + probe._n_total(max_new)
+    eng = PagedGroupEngine(cfg, num_pages=FIRST_PAGE + budget, **args)
+    return eng, budget, full
+
+
+class DecodeSnapshot:
+    """Wraps a D 1 engine's ``step``: after the first step that brings
+    ``decode_steps`` to ``at`` with every slot busy, copies layer 0's K/V
+    pools and positions, the page table and each slot's last query
+    position (the windowed decode kernel's inputs at that step)."""
+
+    def __init__(self, torch, eng, at: int):
+        self.state = None
+        step = eng.step
+
+        def hooked():
+            out = step()
+            if self.state is None and eng.decode_steps >= at and \
+                    len(eng.sched.active_slots()) == eng.B:
+                kv = eng.caches["layers"]["kv"]
+                with torch.cuda.stream(eng.stream):
+                    pools = [kv[n][0].clone() for n in
+                             ("k_pages", "v_pages", "pos_pages")]
+                torch.cuda.synchronize()
+                q_pos = [len(r.group.prompt) + len(r.toks) - 1
+                         for r in eng.sched.slot_req]
+                self.state = (*pools, eng._ptab.copy(), q_pos)
+            return out
+        eng.step = hooked
+
+
+def window_decode_case(torch, np, timer, gen, cfg, snap: DecodeSnapshot):
+    """The windowed paged decode kernel on a snapshot of the engine's own
+    pool (layer 0, a random bf16 query per row at its row's position):
+    against its plain version, with the plain version's time, a page
+    gather + SDPA with the window mask as the library call, and the bound
+    of the window's K/V: the keys each query sees (at most the window),
+    read once, not the context's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        gather_pages, paged_decode_attention, paged_decode_attention_plain)
+    if snap.state is None:
+        fail("window_serve: the decode snapshot was never taken")
+    k, v, pos, table, q_pos = snap.state
+    window = cfg.sliding_window
+    dev = k.device
+    B, H, D, Hkv = table.shape[0], cfg.num_heads, cfg.head_dim, \
+        cfg.num_kv_heads
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(k.dtype)
+    table_t = torch.from_numpy(table).to(dev)
+    qpos_t = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    kv_pos = pos.cpu().numpy()[table]                    # (B, n_max, page)
+    d = np.asarray(q_pos)[:, None, None] - kv_pos.astype(np.int64)
+    vis = (d >= 0) & (d < window)
+    visible, live = int(vis.sum()), int(vis.any(-1).sum())
+
+    def library():
+        kk, vv, kp = gather_pages(k, v, pos, table_t)
+        dd = qpos_t[:, None] - kp
+        mask = ((dd >= 0) & (dd < window))[:, None, None, :]
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kk.transpose(1, 2), vv.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+    elt = q.element_size()
+    page = pos.shape[1]
+    return paged_case(torch, timer, {
+        "fn": paged_decode_attention, "plain": paged_decode_attention_plain,
+        "args": (q, k, v, pos, table_t, qpos_t), "kw": {"window": window},
+        "library": library,
+        "bytes": (2 * q.numel() + 2 * visible * Hkv * D) * elt
+        + 4 * (live * page + live + B),
+        "flops": 4.0 * D * H * visible,
+        "info": {"kernel": "paged_decode_attention", "dtype": "bfloat16",
+                 "B": B, "window": window, "n_max": int(table.shape[1]),
+                 "page": page, "H": H, "Hkv": Hkv, "D": D,
+                 "q_pos": [int(p) for p in q_pos],
+                 "visible_keys": visible, "live_pages": live,
+                 "table_entries": int(table.size)}})
+
+
+def window_run(torch, np, dev, cfg, weights, prompts, seed: int, *,
+               max_new: int, drain: int = 1, spec_k: int = 0,
+               snap_at: int = 0):
+    """``prompts`` through RequestDriver, all arriving at t = 0, on a
+    fresh engine whose pool is the windowed budget (``window_engine``),
+    every replay timed with CUDA events. Checks launches (SPA = L x
+    prefills for GQA; the family's paged decode kernel L x decode steps,
+    or its verify kernel L x verify steps with spec; every other kernel
+    0), peak pages within the budget, every page back, the tokens and
+    finite logits. Returns (result line, tokens by request, snapshot)."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve_requests
+    eng, budget, full = window_engine(cfg, dev, [len(p) for p in prompts],
+                                      max_new, spec_k=spec_k,
+                                      drain_interval=drain)
+    weights.load(eng)                          # clone, pool, capture
+    snap = DecodeSnapshot(torch, eng, snap_at) if snap_at else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    with eng.time_replays() as pairs:
+        reqs, m, stats = serve_requests(
+            cfg, prompts, params=weights.tree, engine=eng, seed=seed,
+            arrivals=np.zeros(len(prompts)), max_new=max_new,
+            max_prompt_len=max(len(p) for p in prompts),
+            num_slots=WINDOW_SLOTS, page_size=WINDOW_PAGE, temperature=0.7,
+            spec_k=spec_k)
+        torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    snap_ = eng.stats_snapshot()
+    L = cfg.num_layers
+    steps = snap_["decode_steps"]
+    verify, decode = PAGED_KERNELS[cfg.use_mla]
+    expect = {name: 0 for name in launches}
+    expect["spa_attention"] = 0 if cfg.use_mla else L * len(prompts)
+    expect[verify if spec_k else decode] = L * steps
+    per_step = 1 if spec_k else drain
+    replay_ms = sorted(a.elapsed_time(b) / per_step for a, b in pairs)
+    page_bytes = _pool_bytes_per_token(cfg) * WINDOW_PAGE
+    from repro_torch.core.paged import FIRST_PAGE
+    out = {
+        "arch": cfg.name, "layers": L, "window": cfg.sliding_window,
+        "dtype": cfg.param_dtype, "drain_interval": drain, "spec_k": spec_k,
+        "requests": len(reqs), "prompt_lens": [len(p) for p in prompts],
+        "max_new": max_new, "slots": WINDOW_SLOTS, "page": WINDOW_PAGE,
+        "temperature": 0.7, "generated_tokens": m["generated_tokens"],
+        "tok_per_s": m["tok_per_s"], "makespan_s": m["makespan_s"],
+        "ttft_p50_s": m["ttft_p50_s"], "ttft_p99_s": m["ttft_p99_s"],
+        "tpot_p50_s": m["tpot_p50_s"], "tpot_p99_s": m["tpot_p99_s"],
+        "prefills": snap_["prefills"],
+        ("verify_forwards" if spec_k else "decode_steps"): steps,
+        "graph_replays": snap_["graph_replays"],
+        "replay_ms_per_step_p50": replay_ms[len(replay_ms) // 2],
+        "reclaimed_pages": snap_["reclaimed_pages"],
+        "peak_pages": eng.peak_pages_used, "budget_pages": budget,
+        "full_context_pages": full,
+        "pool_gib": (FIRST_PAGE + budget) * page_bytes / 2 ** 30,
+        "full_context_gib": (FIRST_PAGE + full) * page_bytes / 2 ** 30,
+        "launches": launches, "expected_launches": expect,
+        "pages_conserved": _pages_conserved(eng),
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+    }
+    if spec_k:
+        out.update(acceptance_rate=stats["acceptance_rate"],
+                   tokens_per_forward=stats["tokens_per_forward"],
+                   rolled_back_pages=stats["rolled_back_pages"])
+    tag = f"window_serve {cfg.name} D {drain} k {spec_k}"
+    if launches != expect or steps == 0 or \
+            snap_["graph_replays"] * per_step != steps or \
+            snap_["prefills"] != len(prompts):
+        fail(f"{tag}: launches {launches} != {expect} "
+             f"({snap_['graph_replays']} replays, {steps} steps)")
+    if out["reclaimed_pages"] <= 0:
+        fail(f"{tag}: the window slid but no page was reclaimed")
+    if out["peak_pages"] > budget:
+        fail(f"{tag}: peak pages {out['peak_pages']} > budget {budget}")
+    if not out["pages_conserved"]:
+        fail(f"{tag}: pages did not all return to the freelist")
+    for r in reqs:
+        if not 1 <= len(r.tokens) <= max_new or \
+                not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            fail(f"{tag}: request {r.rid}: bad tokens {r.tokens[:16]}")
+    if not bool(torch.isfinite(eng.logits).all()):
+        fail(f"{tag}: non-finite logits after serving")
+    del eng
+    gc.collect()                          # its pool before the next's
+    return out, {r.rid: r.tokens for r in reqs}, snap
+
+
+class StepLogits:
+    """Wraps a D 1 engine's ``step`` (greedy): after each step, copies to
+    the host each busy row's next-token logits, keyed (request, t), and a
+    row's prompt logits as its t = 0 (requests are the engine's groups,
+    numbered in submission order)."""
+
+    def __init__(self, torch, eng):
+        self.logits = {}
+        step = eng.step
+
+        def hooked():
+            out = step()
+            torch.cuda.synchronize()
+            for s in eng.sched.active_slots():
+                row = eng.sched.slot_req[s]
+                gid = row.group.gid
+                if (gid, 0) not in self.logits:
+                    self.logits[gid, 0] = \
+                        row.group.prompt_logits.float().cpu().numpy()
+                self.logits[gid, len(row.toks)] = \
+                    eng.logits[s].float().cpu().numpy()
+            return out
+        eng.step = hooked
+
+
+def greedy_flips(np, warm: dict, cold: dict, lw: StepLogits,
+                 lc: StepLogits) -> dict:
+    """Warm against cold greedy tokens. A request whose tokens differ is
+    excused only at its first difference t, and only where the two
+    tokens chosen there are within the card's own disagreement: both runs
+    hold the same context up to t, and the cold logits' gap between the
+    two tokens is at most the largest difference between the warm and the
+    cold logits at that step. Returns {request: (t, gap, disagreement)}
+    for excused requests; fails on any other difference."""
+    flips = {}
+    for rid, c in cold.items():
+        w = warm[rid]
+        if w == c:
+            continue
+        t = next((i for i, (a, b) in enumerate(zip(w, c)) if a != b),
+                 min(len(w), len(c)))
+        if (rid, t) not in lw.logits or (rid, t) not in lc.logits or \
+                t >= len(w) or t >= len(c):
+            fail(f"window radix: request {rid} warm {w[:t + 2]} vs cold "
+                 f"{c[:t + 2]}: no logits at the difference")
+        a, b = lw.logits[rid, t], lc.logits[rid, t]
+        gap = float(b[c[t]] - b[w[t]])
+        noise = float(np.abs(a - b).max())
+        if not 0 <= gap <= noise <= WINDOW_LOGIT_TOL:
+            fail(f"window radix: request {rid} warm {w} != cold {c} at "
+                 f"t {t}: cold gap {gap} > the logits' difference {noise}")
+        flips[rid] = (t, gap, noise)
+    return flips
+
+
+def window_radix(torch, np, dev, cfg, weights, seed: int):
+    """Workload (iii): a 9,000-token system prompt and 8 suffixes of 16 to
+    256 tokens through serve_shared (greedy, 32 new tokens). The window
+    makes each prompt's first (len - 8192) // 16 pages dead for its
+    response (j0); the first, cold, request caches its pages from one
+    window before its j0 on (``_cold_first_page``: page 0 here, so the
+    tree holds no placeholder; one stands for each page below that), and
+    each warm request hits the system prompt's pages from its own j0 up,
+    its suffix prefill reading the cached pages a window before its
+    suffix. Then the same prompts cold (no cache); warm tokens equal cold
+    tokens (a difference is excused only at a tie within the card's own
+    warm / cold disagreement, ``greedy_flips``), and the prompts' last
+    logits agree within WINDOW_LOGIT_TOL."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine, serve_shared
+    rng = np.random.RandomState(seed + 19)
+    system = rng.randint(3, cfg.vocab_size, size=WINDOW_SYSTEM).astype(
+        np.int32)
+    sfx_lens = np.linspace(16, 256, 8).astype(int)
+    suffixes = [rng.randint(3, cfg.vocab_size, size=int(n)).astype(np.int32)
+                for n in sfx_lens]
+    prompts = [np.concatenate([system, s]) for s in suffixes]
+    full = max(len(p) for p in prompts)
+    L = cfg.num_layers
+    kw = dict(max_prompt_len=full, max_new=32, num_slots=len(prompts),
+              page_size=WINDOW_PAGE, temperature=0.0, device=dev)
+    eng = build_paged_engine(cfg, prefix_cache=True, **kw)
+    weights.load(eng)
+    logits_w = StepLogits(torch, eng)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    done, stats = serve_shared(cfg, system, suffixes, max_prompt_len=full,
+                               max_new=32, page_size=WINDOW_PAGE,
+                               temperature=0.0, seed=seed,
+                               params=weights.tree, engine=eng)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    snap = eng.stats_snapshot()
+    verify, decode = PAGED_KERNELS[cfg.use_mla]
+    expect = {name: 0 for name in launches}
+    expect["spa_attention"] = L * snap["prefills"]
+    expect[verify] = L * snap["warm_prefills"]
+    expect[decode] = L * snap["decode_steps"]
+    j0s = [eng._prompt_page_range(len(p))[0] for p in prompts]
+    sys_pages = len(system) // WINDOW_PAGE
+    want_hits = sum(sys_pages - j0 for j0 in j0s[1:])
+    placeholders = eng.radix.num_nodes - eng.radix.cached_pages
+    cold_first = eng._cold_first_page(len(prompts[0]))
+    out = {"phase": "window_radix_serve", "arch": cfg.name, "layers": L,
+           "window": cfg.sliding_window, "system_tokens": len(system),
+           "suffix_lens": [int(n) for n in sfx_lens], "max_new": 32,
+           "first_live_page": j0s, "cold_first_page": cold_first,
+           "tree_nodes": eng.radix.num_nodes,
+           "tree_pages": eng.radix.cached_pages,
+           "placeholders": placeholders,
+           "cold_prefills": snap["prefills"],
+           "warm_prefills": snap["warm_prefills"],
+           "prefix_hit_pages": snap["prefix_hit_pages"],
+           "expected_hit_pages": want_hits,
+           "reclaimed_pages": snap["reclaimed_pages"],
+           "tok_per_s": stats["tok_per_s"], "launches": launches,
+           "expected_launches": expect,
+           "pages_conserved": _pages_conserved(eng)}
+    if snap["prefills"] != 1 or snap["warm_prefills"] != len(prompts) - 1 \
+            or snap["prefix_hit_pages"] != want_hits:
+        fail(f"window radix: expected {want_hits} hit pages from 1 cold "
+             f"and {len(prompts) - 1} warm prefills: {out}")
+    if placeholders != cold_first or j0s[0] <= 0:
+        fail(f"window radix: {placeholders} placeholders, expected the "
+             f"{cold_first} pages below the cold prefill's first: {out}")
+    if launches != expect or not out["pages_conserved"]:
+        fail(f"window radix: launches or pages: {out}")
+    warm = {c.request_id: c.response_ids.tolist() for c in done}
+    del eng
+    gc.collect()
+    eng = build_paged_engine(cfg, **kw)
+    weights.load(eng)
+    logits_c = StepLogits(torch, eng)
+    cold = {c.request_id: c.response_ids.tolist()
+            for c in eng.serve(weights.tree, prompts, seed + 1)}
+    torch.cuda.synchronize()
+    del eng
+    gc.collect()
+    flips = greedy_flips(np, warm, cold, logits_w, logits_c)
+    first = max(float(np.abs(logits_w.logits[i, 0]
+                             - logits_c.logits[i, 0]).max())
+                for i in range(len(prompts)))
+    if first > WINDOW_LOGIT_TOL:
+        fail(f"window radix: warm and cold prompt logits differ by {first}"
+             f" > {WINDOW_LOGIT_TOL}")
+    out.update(tokens=sum(len(t) for t in cold.values()),
+               prompt_logits_max_abs_diff=first,
+               requests_identical=len(cold) - len(flips),
+               excused_flips={str(k): v for k, v in flips.items()})
+    return out
+
+
+def window_parity(torch, np, dev, seed: int):
+    """Reduced windowed llama and mla_dense (2 layers, f32, window 32,
+    page 8) on the card against the CPU, greedy: tokens, reclaimed pages
+    and peak pages equal at D 1 and D 3, with spec off and on (k 4); and
+    through the radix cache, warm tokens equal cold ones."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import serve_paged
+    from repro_torch.models import init
+    lines = []
+    for name in ("llama3.2-3b", "mla_dense"):
+        cfg = reduced_config(window_config(name))
+        p_cpu = init(cfg, seed=seed, device="cpu")
+        p_gpu = _to(p_cpu, dev)
+        rng = np.random.RandomState(seed + 23)
+        prompts = [rng.randint(3, cfg.vocab_size, size=(int(n),)).astype(
+            np.int32) for n in (20, 37, 51, 64)]
+        kw = dict(max_prompt_len=64, max_new=48, num_slots=2, page_size=8,
+                  temperature=0.0, seed=seed)
+        runs = []
+        for drain, spec_k in ((1, 0), (3, 0), (1, SPEC_K), (3, SPEC_K)):
+            got = {}
+            for where, params in (("cpu", p_cpu), (dev, p_gpu)):
+                done, stats = serve_paged(cfg, prompts, device=where,
+                                          params=params, drain_interval=drain,
+                                          spec_k=spec_k, **kw)
+                got[str(where)] = (_tokens(done), stats["reclaimed_pages"],
+                                   stats["peak_pages"])
+            cpu, card = got["cpu"], got[str(dev)]
+            if cpu != card or cpu[1] <= 0:
+                fail(f"window parity {name} D {drain} k {spec_k}: card "
+                     f"{card[1:]} vs CPU {cpu[1:]}, tokens equal "
+                     f"{card[0] == cpu[0]}")
+            runs.append({"drain_interval": drain, "spec_k": spec_k,
+                         "reclaimed_pages": cpu[1], "peak_pages": cpu[2],
+                         "tokens": sum(len(t) for t in cpu[0].values())})
+        # the radix cache: a 40-token system prompt and suffixes of 10 to
+        # 20 tokens, whose first suffix query sees pages below its first
+        # live page; warm on the card == cold on the card == warm on the
+        # CPU
+        system = list(rng.randint(3, cfg.vocab_size, size=40))
+        shared = [np.asarray(system + list(rng.randint(
+            3, cfg.vocab_size, size=n)), np.int32) for n in (10, 14, 20)]
+        got = {}
+        for where, params, prefix in ((dev, p_gpu, True), (dev, p_gpu, False),
+                                      ("cpu", p_cpu, True)):
+            done, stats = serve_paged(cfg, shared, device=where,
+                                      params=params, prefix_cache=prefix,
+                                      **kw)
+            got[str(where), prefix] = _tokens(done)
+            if prefix and not stats["prefix_hit_pages"]:
+                fail(f"window parity {name}: the radix cache never hit")
+        if len({str(t) for t in got.values()}) != 1:
+            fail(f"window parity {name}: radix warm / cold tokens differ: "
+                 f"{got}")
+        lines.append({"phase": "window_parity", "arch": cfg.name,
+                      "window": cfg.sliding_window, "dtype": "float32",
+                      "runs": runs, "tokens_identical": True,
+                      "radix_warm_equals_cold": True})
+    return lines
+
+
+def window_serve(torch, np, dev, seed: int, timer, smi: str):
+    """Phase 19: long_context_variant llama3.2-3b at full width (28
+    layers, bf16, window 8192) on workloads (i) and (ii) and the radix
+    cache (iii), the windowed mla_dense on (i), the windowed decode
+    kernel at both contexts, then card against CPU on the reduced
+    windowed configs. Yields its lines; the "kernels" line reads the
+    ones tagged "kernel_case"."""
+    from repro_torch.models import init
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    cfg = window_config("llama3.2-3b")
+    rng = np.random.RandomState(seed + 19)
+    lens_i = np.linspace(*WINDOW_PROMPT_LENS, WINDOW_SLOTS).astype(int)
+    prompts_i = [rng.randint(3, cfg.vocab_size, size=int(n)).astype(np.int32)
+                 for n in lens_i]
+    prompts_ii = [rng.randint(3, cfg.vocab_size, size=DECODE_32K).astype(
+        np.int32) for _ in range(WINDOW_SLOTS)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    weights = HeldTree(init(cfg, seed=seed, device=dev))
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    toks, snaps = {}, {}
+    for drain, spec_k in ((1, 0), (8, 0), (1, SPEC_K)):
+        line, toks[drain, spec_k], snap = window_run(
+            torch, np, dev, cfg, weights, prompts_i, seed,
+            max_new=WINDOW_NEW, drain=drain, spec_k=spec_k,
+            snap_at=WINDOW_SNAP_AT["i"] if (drain, spec_k) == (1, 0) else 0)
+        if snap is not None:
+            snaps["i"] = snap
+        yield {"phase": "window_serve", "workload": "i", "init_s": init_s,
+               **line}
+    if toks[1, 0] != toks[8, 0]:
+        fail("window_serve: sampled tokens differ between D 1 and D 8")
+    line, _, snaps["ii"] = window_run(
+        torch, np, dev, cfg, weights, prompts_ii, seed,
+        max_new=WINDOW_32K_NEW, snap_at=WINDOW_SNAP_AT["ii"])
+    yield {"phase": "window_serve", "workload": "ii_decode_32k", **line}
+    yield window_radix(torch, np, dev, cfg, weights, seed)
+    for ctx, snap in snaps.items():
+        case = window_decode_case(torch, np, timer, gen, cfg, snap)
+        if not case["ok"]:
+            fail(f"window_serve: the windowed decode kernel disagrees with "
+                 f"its plain version at context {ctx}: {case}")
+        yield {"phase": "window_kernel", "kernel_case": ctx, **case}
+    del weights, snaps
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla = window_config("mla_dense")
+    weights = HeldTree(init(mla, seed=seed, device=dev))
+    # the same lengths, drawn from mla_dense's smaller vocabulary
+    prompts_mla = [rng.randint(3, mla.vocab_size, size=len(p)).astype(
+        np.int32) for p in prompts_i]
+    line, _, _ = window_run(torch, np, dev, mla, weights, prompts_mla, seed,
+                            max_new=WINDOW_NEW)
+    yield {"phase": "window_serve", "workload": "i", **line}
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    yield from window_parity(torch, np, dev, seed)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3214,6 +3735,18 @@ def main() -> None:
             moe_trained = line["launches"]
     for line in moe_train_parity(torch, np, dev, args.seed):
         emit({**line, "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 19: the sliding window on the paged plane
+    window = {}
+    for line in window_serve(torch, np, dev, args.seed, timer, smi):
+        emit({**line, "card": smi})
+        if "kernel_case" in line:
+            window[line["kernel_case"]] = line
+        elif line["phase"] == "window_serve" and not line["spec_k"] and \
+                line["drain_interval"] == 1 and not line["arch"].startswith(
+                    "deepseek"):
+            window["launches", line["workload"][:2]] = line["launches"]
 
     # the training run's launches, each kernel timed at that run's shapes
     meta = {
@@ -3241,6 +3774,14 @@ def main() -> None:
          **({"bf16_prefill": {key: prefill[name][key] for key in timing}}
             if name in prefill else {})}
         for name, (src, rep, c) in meta.items()]
+    # phase 19's windowed decode kernel at both contexts, with the
+    # launches of the D 1 run at that context
+    next(r for r in row if r["name"] == "paged_decode_attention").update({
+        f"window_{ctx}_context": {
+            **{key: window[case][key] for key in timing},
+            "launches": window["launches", case][
+                "paged_decode_attention"]}
+        for ctx, case in (("8k", "i"), ("32k", "ii"))})
     # the spec serving run's launches, timed at its shape (bf16, B 4, S 5);
     # the radix suffix prefill's shape (phase 9's path) beside it
     row.append({

@@ -28,6 +28,17 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
+def long_context_variant(cfg: ModelConfig, window: int = 8192) -> ModelConfig:
+    """Sub-quadratic decode variant for the long-context shapes
+    (``decode_32k``, ``long_500k``): a full-attention config gets a
+    sliding-window KV cache, whose paged engine reclaims out-of-window
+    pages. SSM/hybrid configs (their state is already O(1)) and configs
+    that already have a window come back unchanged."""
+    if cfg.family in ("ssm", "hybrid") or cfg.sliding_window is not None:
+        return cfg
+    return dataclasses.replace(cfg, sliding_window=window)
+
+
 def reduced_config(cfg: ModelConfig) -> ModelConfig:
     """CPU-smoke-testable variant of the same family: 2 layers,
     d_model <= 256, 64-wide heads, f32, and <= 4 experts or a 64-rank
@@ -68,5 +79,5 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["REGISTRY", "ARCH_IDS", "get_config", "reduced_config",
-           "ModelConfig", "RLConfig"]
+__all__ = ["REGISTRY", "ARCH_IDS", "get_config", "long_context_variant",
+           "reduced_config", "ModelConfig", "RLConfig"]

@@ -2,7 +2,7 @@
 
 ``ModelConfig`` keeps the fields the ported paths read plus the capability
 fields the support matrix needs to reject what the port does not run yet
-(SSM/hybrid, enc-dec, VLM, sliding windows). ``RLConfig``
+(SSM/hybrid, enc-dec, VLM). ``RLConfig``
 keeps the fields the periodic-async GRPO pipeline reads.
 """
 from __future__ import annotations
@@ -92,30 +92,38 @@ _NOT_YET = "not ported to PyTorch yet (ROADMAP.md Queue 1)"
 def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
     """(supported, reason) for running ``cfg`` on ``engine`` in the port:
     the paged engine serves GQA and MLA attention, each with a dense or a
-    MoE feed-forward; the spec plane, the prefix plane and training (the
-    ``"train"`` plane, which ``build_pipeline`` asks) ride on it for all
-    four; every other family waits for later slices."""
+    MoE feed-forward and with or without a sliding window (out-of-window
+    pages are reclaimed); the spec plane, the prefix plane and training
+    (the ``"train"`` plane, which ``build_pipeline`` asks) ride on it for
+    all of them; every other family waits for later slices."""
     if engine in _PLANES:
         ok, reason = engine_support(cfg, "paged")
         if not ok:
             return ok, reason
         moe = " (MoE routed per forward, as in the JAX engine)" \
             if cfg.is_moe else ""
+        windowed = cfg.sliding_window is not None
         if engine == SPEC_PLANE:
+            win = (", incl. sliding-window (speculative pages respect "
+                   "reclamation)" if windowed else "")
             return True, ("a rejected draft's speculative pages roll back "
-                          "to the freelist" + moe)
+                          "to the freelist" + win + moe)
         if engine == PREFIX_PLANE:
             kind = "MLA latent" if cfg.use_mla else "K/V"
+            win = (" (window-dead leading pages are never cached)"
+                   if windowed else "")
             return True, (f"cached {kind} prompt pages are shared across "
-                          "requests" + moe)
+                          "requests" + win + moe)
+        win = (f", every query masked to its {cfg.sliding_window}-token "
+               "window" if windowed else "")
         if cfg.is_moe:
             return True, ("the router's auxiliary load-balance loss joins "
                           "the GRPO loss and trains the router, as in the "
-                          "JAX package" + moe)
+                          "JAX package" + win + moe)
         if cfg.use_mla:
             return True, ("MLA's expanded attention trains through "
-                          "autograd, as the JAX package's does")
-        return True, "the SPA kernel and its backward carry training"
+                          "autograd, as the JAX package's does" + win)
+        return True, "the SPA kernel and its backward carry training" + win
     if engine not in ROLLOUT_ENGINES:
         raise KeyError(f"unknown engine {engine!r}; known: "
                        f"{ROLLOUT_ENGINES + _PLANES}")
@@ -126,12 +134,12 @@ def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
         return False, "SSM/hybrid recurrent state is " + _NOT_YET
     if cfg.is_encoder_decoder or cfg.vision_prefix_len:
         return False, "enc-dec and VLM prefixes are " + _NOT_YET
-    if cfg.sliding_window is not None:
-        return False, ("sliding-window page reclamation is " + _NOT_YET)
     ffn = "MoE" if cfg.is_moe else "dense"
+    win = ("; sliding-window: out-of-window pages are reclaimed to the "
+           "freelist" if cfg.sliding_window is not None else "")
     if cfg.use_mla:
-        return True, f"pages hold (ckv, kr) latent rows (MLA, {ffn} FFN)"
-    return True, f"pages hold per-head K/V rows (GQA, {ffn} FFN)"
+        return True, f"pages hold (ckv, kr) latent rows (MLA, {ffn} FFN){win}"
+    return True, f"pages hold per-head K/V rows (GQA, {ffn} FFN){win}"
 
 
 def require_engine_support(cfg: ModelConfig, engine: str) -> None:

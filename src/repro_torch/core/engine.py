@@ -145,7 +145,7 @@ class InferencePool:
         so callers can diff snapshots unconditionally."""
         agg = {"decode_steps": 0, "generated_tokens": 0, "prefills": 0,
                "warm_prefills": 0, "graph_replays": 0, "warmup_steps": 0,
-               "spec_steps": 0, "drafted_tokens": 0,
+               "reclaimed_pages": 0, "spec_steps": 0, "drafted_tokens": 0,
                "accepted_tokens": 0, "rolled_back_pages": 0,
                "prefix_hit_pages": 0, "prefix_miss_pages": 0,
                "prefix_evicted_pages": 0}

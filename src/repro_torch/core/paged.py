@@ -17,7 +17,20 @@ The KV cache is paged (``models/attention.py PagedCacheBackend``):
     crosses into it, against a per-row page *credit* reserved at
     admission — the admission gate reads ``free - outstanding_credit``, so
     an admitted row can always take its next page (no mid-decode stall, no
-    deadlock).
+    deadlock);
+  * a sliding-window config RECLAIMS out-of-window pages: once a row's
+    query position is a whole window past a page's last token
+    (``q_pos - last_pos >= window``) the page leaves the row's table and
+    the row's reference returns to the allocator (a prompt page that
+    another row still sees stays resident through its refcount), so a
+    row holds O(window) pages, not O(context). Prompt pages that are
+    already out of the first response query's window are never
+    allocated (on a prefix-cache engine, those more than a window before
+    it: ``_cold_first_page``). Each row keeps its live pages in logical
+    order
+    (``_Row.live``); reclamation runs on the host at each decode block's
+    (or verify step's) first query position, and only rewrites the page
+    table the step reads.
 
 Page 0 is the null page (pos 2^30, masked everywhere), page 1 the trash
 page inactive slots write into.
@@ -81,12 +94,14 @@ and spec settings; the engine's other invariances (slot count, D, warm
 == cold, spec greedy == plain greedy) hold for MoE only where nothing is
 dropped.
 
-Sliding windows are refused at construction (``require_engine_support``).
+SSM/hybrid, enc-dec and VLM configs are refused at construction
+(``require_engine_support``).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -181,10 +196,15 @@ class _Group:
     G: int
     key: Key                         # sampling key of the group's rows
     max_new: int
+    # the prompt pages of the group's table (window-visible ones, and on a
+    # prefix-cache engine those a warm start needs) and each one's last
+    # token position
     prompt_pages: Optional[List[int]] = None
+    prompt_last: Optional[List[int]] = None
     prompt_logits: Optional[torch.Tensor] = None   # (V,) f32 on device
-    # radix match stashed by the admission gate for _admit_row: (m, pages),
-    # prompt page indices j0..m-1 already cached as ``pages``
+    # radix match stashed by the admission gate for _admit_row: (jt, m,
+    # pages), the table's first prompt page and pages jt..m-1 already
+    # cached as ``pages`` (``_radix_match``)
     match: Optional[tuple] = None
     # streaming delivery: on_token(row_idx, token_id) for every committed
     # token, in commit order (launch/serve.py RequestDriver)
@@ -202,6 +222,8 @@ class _Row:
     lps: list = dataclasses.field(default_factory=list)
     pages: list = dataclasses.field(default_factory=list)  # resp page k -> id
     credit: int = 0                  # future page allocations reserved
+    # live pages in logical order: (last_pos, table_idx, page_id, is_prompt)
+    live: deque = dataclasses.field(default_factory=deque)
     seed: int = 0                    # sampling seed (rl/rollout.py row_seed)
     # response positions dispatched: the committed length plus the steps
     # of a block still in flight
@@ -339,18 +361,22 @@ class PagedGroupEngine:
         self.eos_id = eos_id
         self.pad_id = pad_id
         self.capture_logprobs = capture_logprobs
+        self.window = cfg.sliding_window
+        self._prefix_cache = prefix_cache
         self.n_prompt_pages = -(-max_prompt_len // page_size)
         self.n_resp_pages = -(-max_new_tokens // page_size)
         self.n_max = self.n_prompt_pages + self.n_resp_pages
+        live_pp_max = self.n_prompt_pages - self._cold_first_page(
+            max_prompt_len)
         if num_pages == 0:      # auto-size: two full groups resident
-            num_pages = FIRST_PAGE + 2 * (self.n_prompt_pages + group_size
+            num_pages = FIRST_PAGE + 2 * (live_pp_max + group_size
                                           * self._row_budget(max_new_tokens))
         self.P = num_pages
-        if FIRST_PAGE + self.n_prompt_pages + 1 > num_pages:
+        if FIRST_PAGE + live_pp_max + 1 > num_pages:
             raise ValueError(
                 f"page pool too small: {num_pages} pages cannot hold one "
-                f"max-length prompt ({self.n_prompt_pages} pages) + one "
-                f"response page + {FIRST_PAGE} reserved")
+                f"max-length prompt ({live_pp_max} window-visible pages) + "
+                f"one response page + {FIRST_PAGE} reserved")
 
         # device state, built at the first set_params (on the card later
         # calls copy new weights in: the captured graph reads these
@@ -384,6 +410,9 @@ class PagedGroupEngine:
         # decode steps (verify steps) the graph's warm-up ran: real kernel
         # launches outside any request
         self.warmup_steps = 0
+        # pages the window slid past that went back to the freelist (a
+        # shared prompt page counts once, when its last row drops it)
+        self.reclaimed_pages = 0
         self.reset_spec_stats()
         self.reset_prefix_stats()
 
@@ -423,6 +452,7 @@ class PagedGroupEngine:
                     "warm_prefills": self.warm_prefills,
                     "graph_replays": self.graph_replays,
                     "warmup_steps": self.warmup_steps,
+                    "reclaimed_pages": self.reclaimed_pages,
                     "spec_steps": self.spec_steps,
                     "drafted_tokens": self.drafted_tokens,
                     "accepted_tokens": self.accepted_tokens,
@@ -433,18 +463,77 @@ class PagedGroupEngine:
 
     # -- page geometry ------------------------------------------------------
 
-    def _row_budget(self, max_new: int) -> int:
-        """Response pages a row writes over its whole decode — the page
-        credit the admission gate reserves (no window: every written page
-        stays resident until the row finishes; spec positions past
-        ``max_new`` go to the trash page, so speculation adds none)."""
+    def _n_total(self, max_new: int) -> int:
+        """Response pages a row writes over its whole decode."""
         return -(-max_new // self.page)
 
+    def _row_budget(self, max_new: int) -> int:
+        """Worst-case simultaneously resident response pages of one row —
+        the page credit the admission gate reserves. Without a window
+        every written page stays until the row finishes (spec positions
+        past ``max_new`` go to the trash page, so speculation adds none).
+        With one, reclamation at each step's first query position bounds
+        the live span to ``window`` positions, which straddle at most
+        window // page + 2 pages (+1 for the step's new page). A spec
+        block writes up to k tokens past that position, which widens the
+        budget by ceil(k / page) + 1, and a D-step block up to D - 1,
+        which widens it by (D - 1) // page + 1; never past the total."""
+        n = self._n_total(max_new)
+        if self.window is None:
+            return n
+        spec = -(-self.spec_k // self.page) + 1 if self.spec_k else 0
+        look = (self.drain - 1) // self.page + 1 if self.drain > 1 else 0
+        return min(n, self.window // self.page + 3 + spec + look)
+
     def _prompt_page_range(self, plen: int):
-        """(j0, n_pp): prompt pages j0..n_pp-1 are visible to the first
-        response query. Without a sliding window (the port refuses them,
-        ROADMAP Queue 1) every prompt page is, so j0 is 0."""
-        return 0, -(-plen // self.page)
+        """(j0, n_pp): prompt pages j0..n_pp-1 are window-visible to at
+        least the first response query (q_pos = plen); pages before j0 are
+        dead on arrival and never allocated (j0 is 0 without a window)."""
+        n_pp = -(-plen // self.page) if plen else 0
+        j0 = 0 if self.window is None else max(0, (plen - self.window)
+                                               // self.page)
+        return j0, n_pp
+
+    def _cold_first_page(self, plen: int) -> int:
+        """The first prompt page a cold prefill allocates: j0, or, on a
+        prefix-cache engine under a window, one window of pages before j0
+        (from page 0 on for a prompt under two windows). Those pages are
+        cached with the rest and reclaimed from the row at its first
+        decode step: a later prompt that shares them prefills its suffix
+        warm, and that suffix's first query sees a whole window back,
+        below its own j0 (``_radix_match``)."""
+        j0, _ = self._prompt_page_range(plen)
+        if not self._prefix_cache or self.window is None:
+            return j0
+        return max(0, j0 - self.window // self.page)
+
+    def _radix_match(self, prompt: np.ndarray, j0: int):
+        """(jt, m, pages): the group's table starts at prompt page jt, and
+        pages jt..m-1 come from the radix tree as ``pages``; m == jt means
+        no usable match (a cold prefill from ``_cold_first_page``).
+
+        Without a window the match starts at j0 (0). Under one, a warm
+        suffix prefill's first query, at position m * page, sees keys a
+        window back, which may lie below j0 (that page is dead only for
+        the response). The match is then usable only when the tree holds
+        every page from that query's first visible page on; those pages
+        join the table, and the row's first decode step reclaims them.
+        The JAX engine's match starts at j0 whatever the suffix, so its
+        suffix queries there miss the keys below j0 and its warm tokens
+        differ from its cold ones."""
+        m, pages = self.radix.lookup(prompt, j0=j0)
+        if m > j0 and self.window is not None:
+            lo = max(0, (m * self.page - self.window + 1) // self.page)
+            if lo < j0:
+                m2, pages2 = self.radix.lookup(prompt, j0=lo)
+                if m2 < m:             # a page the suffix sees is not cached
+                    m = j0
+                else:
+                    return lo, m, pages2
+        if m == j0:
+            jt = self._cold_first_page(len(prompt))
+            return jt, jt, []
+        return j0, m, pages
 
     def _suffix_bucket(self, n_sfx_pages: int) -> int:
         """Pad a radix-miss suffix to a power-of-two page count (as the JAX
@@ -463,6 +552,15 @@ class PagedGroupEngine:
         over a dense temporary cache and splice its per-layer K/V into the
         pool at ``dest_pages`` — one physical prompt copy serves every row
         of the group. Returns the last prompt token's logits (V,) f32.
+
+        ``dest_pages`` holds the prompt's last pages, those from the
+        group's first table page on: with a sliding window the leading
+        pages that the first response query cannot see
+        (``_prompt_page_range``; on a prefix-cache engine, those a window
+        before them, ``_cold_first_page``) are computed (later prompt
+        tokens attend to them) but never spliced. The JAX engine writes
+        them all into the trash page; here nothing is written there, so
+        its positions stay invalid.
 
         The temporary cache spans the prompt's own pages, not
         ``max_prompt_len`` (the JAX engine pads to the maximum to keep one
@@ -486,11 +584,12 @@ class PagedGroupEngine:
                                 * self.page)
         logits = h[0, length - 1].float() @ self._w_head
         n_pp = dest_pages.shape[0]
+        live = slice(S - n_pp * self.page, S)
         pools, t = caches["layers"]["kv"], tmp["layers"]["kv"]
         for name, shp in cache_streams(cfg):
-            pools[name + "_pages"][:, dest_pages] = t[name][:, 0].reshape(
-                (cfg.num_layers, n_pp, self.page) + shp)
-        pos_write = torch.where(real[0], ar[0], INVALID_POS)
+            pools[name + "_pages"][:, dest_pages] = t[name][
+                :, 0, live].reshape((cfg.num_layers, n_pp, self.page) + shp)
+        pos_write = torch.where(real[0], ar[0], INVALID_POS)[live]
         pools["pos_pages"][:, dest_pages] = pos_write.reshape(n_pp, self.page)
         return logits
 
@@ -763,15 +862,16 @@ class PagedGroupEngine:
         if len(p) == 0:
             raise ValueError("empty prompt")
         max_new = self.T if max_new is None else min(max_new, self.T)
-        n_pp = -(-len(p) // self.page)
-        need = n_pp + self._row_budget(max_new)
+        _, n_pp = self._prompt_page_range(len(p))
+        n_prompt = n_pp - self._cold_first_page(len(p))
+        need = n_prompt + self._row_budget(max_new)
         avail = self.P - FIRST_PAGE
         if need > avail:
             raise ValueError(
                 f"group can never be admitted: prompt of {len(p)} tokens "
-                f"needs {n_pp} pages + {self._row_budget(max_new)} response "
-                f"pages per row = {need}, but the pool only ever frees "
-                f"{avail} of its {self.P} pages")
+                f"needs {n_prompt} pages + {self._row_budget(max_new)} "
+                f"response pages per row = {need}, but the pool only ever "
+                f"frees {avail} of its {self.P} pages")
         with self._mutex:
             if self.params is None:
                 raise RuntimeError("set_params before submit")
@@ -802,6 +902,7 @@ class PagedGroupEngine:
             self.warm_prefills = 0
             self.graph_replays = 0
             self.warmup_steps = 0
+            self.reclaimed_pages = 0
             self.alloc.min_free = self.alloc.num_free
             self.reset_spec_stats()
             self.reset_prefix_stats()
@@ -822,10 +923,10 @@ class PagedGroupEngine:
         mpages = []
         if g.prompt_pages is None:
             j0, n_pp = self._prompt_page_range(len(g.prompt))
-            m = j0
+            m = self._cold_first_page(len(g.prompt))
             if self.radix is not None:
-                m, mpages = self.radix.lookup(g.prompt, j0=j0)
-                g.match = (m, mpages)
+                g.match = self._radix_match(g.prompt, j0)
+                _, m, mpages = g.match
             need += n_pp - m
         free = self.alloc.num_free - self._outstanding
         if free < need and self.radix is not None:
@@ -835,13 +936,14 @@ class PagedGroupEngine:
         return free >= need
 
     def _warm_prefill(self, g: _Group, m: int, new: List[int],
-                      j0: int, n_pp: int) -> None:
+                      jt: int, n_pp: int) -> None:
         """Prefill a radix-hit prompt's uncached tail (page indices
         ``m..n_pp-1``) into its freshly allocated private pages ``new``,
         attending through the matched cached pages via the group's page
-        table. The block is padded to a power-of-two page count
-        (``_suffix_bucket``); pad slots are masked (segment -1) and write
-        to the trash page, never into a live page."""
+        table (prompt pages jt..n_pp-1). The block is padded to a
+        power-of-two page count (``_suffix_bucket``); pad slots are masked
+        (segment -1) and write to the trash page, never into a live
+        page."""
         page = self.page
         m_tok = m * page
         sfx = g.prompt[m_tok:]
@@ -857,7 +959,7 @@ class PagedGroupEngine:
             a = m_tok + t
             wsl[0, t] = new[a // page - m] * page + a % page
         tab = np.zeros((1, self.n_max), np.int32)
-        tab[0, : n_pp - j0] = g.prompt_pages
+        tab[0, : n_pp - jt] = g.prompt_pages
         # fresh pages may hold a previous sequence's stale (pos, kv)
         self._invalidate(self._to_device(np.asarray(new, np.int64)))
         g.prompt_logits = self._prefill_suffix(
@@ -869,9 +971,13 @@ class PagedGroupEngine:
         g = row.group
         if g.prompt_pages is None:
             j0, n_pp = self._prompt_page_range(len(g.prompt))
-            m, mpages = g.match if g.match is not None else (j0, [])
+            if g.match is None:
+                jt = m = self._cold_first_page(len(g.prompt))
+                mpages = []
+            else:
+                jt, m, mpages = g.match
             g.match = None
-            if m > j0:
+            if m > jt:
                 # radix warm start: the matched cached pages join the
                 # group's table with one reference per row; only the
                 # uncached suffix is prefilled, into private pages
@@ -882,10 +988,10 @@ class PagedGroupEngine:
                 g.prompt_pages = list(mpages) + new
                 self.prefix_hit_pages += m - j0
                 self.prefix_miss_pages += n_pp - m
-                self._warm_prefill(g, m, new, j0, n_pp)
+                self._warm_prefill(g, m, new, jt, n_pp)
                 self.warm_prefills += 1
             else:
-                pages = self.alloc.alloc(n_pp - j0, refcount=g.G)
+                pages = self.alloc.alloc(n_pp - jt, refcount=g.G)
                 assert pages is not None, \
                     "admission gate let a row in without pages for its prompt"
                 g.prompt_pages = pages
@@ -899,16 +1005,20 @@ class PagedGroupEngine:
                     len(g.prompt),
                     self._to_device(np.asarray(pages, np.int64)))
                 self.prefills += 1
+            g.prompt_last = [min((j + 1) * self.page, len(g.prompt)) - 1
+                             for j in range(jt, n_pp)]
             if self.radix is not None:
                 # cache every COMPLETE prompt page, cold and warm alike
                 # (insert skips spans already cached); a trailing partial
                 # page is row-private and never enters the tree
                 self.prefix_inserted_pages += self.radix.insert(
-                    g.prompt, {j: g.prompt_pages[j - j0]
-                               for j in range(j0, len(g.prompt) // self.page)})
+                    g.prompt, {j: g.prompt_pages[j - jt]
+                               for j in range(jt, len(g.prompt) // self.page)})
         row.pages = []
         row.credit = self._row_budget(g.max_new)
         self._outstanding += row.credit
+        row.live = deque((last, i, pid, True) for i, (last, pid)
+                         in enumerate(zip(g.prompt_last, g.prompt_pages)))
         tab = np.zeros((self.n_max,), np.int32)        # NULL padding
         tab[: len(g.prompt_pages)] = g.prompt_pages
         self._ptab[slot] = tab
@@ -930,11 +1040,12 @@ class PagedGroupEngine:
     def _alloc_resp_page(self, slot: int, row: _Row, k: int) -> int:
         """Lazily take response page k (the write cursor, or a spec block's
         speculative write, just crossed a page boundary) out of the row's
-        reserved credit. The credit stays symmetric until the row
-        finishes: allocation takes one, ``_rollback_row`` gives one back,
-        and nothing returns credit early (without a window the budget is
-        exactly the pages the row can write, and a speculative last page
-        may be rolled back and taken again)."""
+        reserved credit. Allocation takes one credit, ``_rollback_row`` and
+        ``_reclaim_row`` give one back. The row's last page returns the
+        rest early (it is nonzero only under a window, whose budget the
+        re-armed credit keeps full), except on a spec engine: there a
+        speculative last page may be rolled back and taken again, so the
+        credit stays symmetric until the row finishes."""
         g = row.group
         assert row.credit > 0, "page-credit invariant violated: row " \
             "admitted without budget for its next page"
@@ -944,7 +1055,13 @@ class PagedGroupEngine:
         self._outstanding -= 1
         pid = pages[0]
         row.pages.append(pid)
-        self._ptab[slot, len(g.prompt_pages) + k] = pid
+        ti = len(g.prompt_pages) + k
+        self._ptab[slot, ti] = pid
+        row.live.append((len(g.prompt) + (k + 1) * self.page - 1, ti, pid,
+                         False))
+        if not self.spec_k and len(row.pages) == self._n_total(g.max_new):
+            self._outstanding -= row.credit
+            row.credit = 0
         return pid
 
     def _rollback_row(self, slot: int, row: _Row, vf_rp: int) -> None:
@@ -957,14 +1074,35 @@ class PagedGroupEngine:
         tail slots are overwritten by the next verify block before any
         query reads them."""
         keep = vf_rp // self.page if vf_rp >= 0 else -1
-        base = len(row.group.prompt_pages)
         while len(row.pages) - 1 > keep:
             pid = row.pages.pop()
-            self._ptab[slot, base + len(row.pages)] = NULL_PAGE
+            _, ti, pid_live, is_prompt = row.live.pop()
+            assert pid_live == pid and not is_prompt, \
+                "rollback must pop the most recent speculative page"
+            self._ptab[slot, ti] = NULL_PAGE
             self.alloc.release([pid])
             row.credit += 1
             self._outstanding += 1
             self.rolled_back_pages += 1
+
+    def _reclaim_row(self, slot: int, row: _Row, q_pos: int) -> None:
+        """Sliding-window page reclamation: positions only grow, so once
+        ``q_pos - last_pos >= window`` no present or future query of this
+        row can see the page. Drop it from the row's table and release the
+        row's reference (a prompt page shared with rows that still see it
+        stays resident through its refcount). A block still in flight may
+        read the page; whoever reuses it writes on the engine's stream,
+        after that block."""
+        n_total = self._n_total(row.group.max_new)
+        while row.live and q_pos - row.live[0][0] >= self.window:
+            _, ti, pid, is_prompt = row.live.popleft()
+            self._ptab[slot, ti] = NULL_PAGE
+            self.reclaimed_pages += self.alloc.release([pid])
+            if not is_prompt and len(row.pages) < n_total:
+                # the freed page re-arms this row's credit: resident +
+                # credit stays the admission-time budget
+                row.credit += 1
+                self._outstanding += 1
 
     def _finish_row(self, slot: int, row: _Row, step: int) -> None:
         g = row.group
@@ -972,10 +1110,11 @@ class PagedGroupEngine:
         if self.capture_logprobs:
             g.done_lps[row.idx] = np.asarray(row.lps, np.float32)
         g.finish_step = step
-        # the row's response pages + its reference on the shared prompt
-        # pages; a block in flight may still touch them, so whoever reuses
-        # them writes on the engine's stream, after that block
-        self.alloc.release(row.pages + g.prompt_pages)
+        # the row's live response pages + its reference on the live shared
+        # prompt pages; a block in flight may still touch them, so whoever
+        # reuses them writes on the engine's stream, after that block
+        self.alloc.release([pid for _, _, pid, _ in row.live])
+        row.live.clear()
         row.pages = []
         self._outstanding -= row.credit
         row.credit = 0
@@ -1041,7 +1180,8 @@ class PagedGroupEngine:
         it: per slot, schedule up to D steps from its frontier
         (``row.sched_t``, not the committed length, which lags while a
         block is in flight), allocating the response pages those steps
-        write. Page bookkeeping stays host-side; the device receives (D,
+        write and reclaiming out-of-window pages at the block's first query
+        position. Page bookkeeping stays host-side; the device receives (D,
         B) write slots and valid masks, (B,) first positions, response
         positions and seeds, the fresh pages and the page table."""
         B, D, page = self.B, self.drain, self.page
@@ -1060,6 +1200,8 @@ class PagedGroupEngine:
             t0 = row.sched_t
             if t0 >= g.max_new:      # fully scheduled; awaiting its drain
                 continue
+            if self.window is not None:
+                self._reclaim_row(s, row, len(g.prompt) + t0)
             n_row = min(D, g.max_new - t0)
             for t in range(t0, t0 + n_row):
                 k = t // page
@@ -1134,6 +1276,11 @@ class PagedGroupEngine:
             row = self.sched.slot_req[s]
             g = row.group
             rc = len(row.toks)
+            if self.window is not None:
+                # the block's first query: a fresh row's first draft, a
+                # steady row's unfed last committed token
+                self._reclaim_row(s, row, len(g.prompt) + rc
+                                  - (0 if row.fresh else 1))
             delta = pack_row_block(tokens[s], positions[s], segs[s],
                                    row.fresh, drafts[s],
                                    row.toks[-1] if rc else self.pad_id,

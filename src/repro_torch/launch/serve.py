@@ -185,11 +185,13 @@ def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
 
 def serving_stats(eng, generated_tokens: int) -> dict:
     """The serving stats of an engine's run: decode steps and peak pages,
-    and with spec on the acceptance rate and tokens per per-row verify
-    forward (1.0 = no gain, up to k+1), with the radix cache its hit
-    rate and pages."""
+    with a sliding window the pages it reclaimed, with spec on the
+    acceptance rate and tokens per per-row verify forward (1.0 = no gain,
+    up to k+1), with the radix cache its hit rate and pages."""
     stats = {"decode_steps": eng.decode_steps,
              "peak_pages": eng.peak_pages_used}
+    if eng.window is not None:
+        stats["reclaimed_pages"] = eng.reclaimed_pages
     if eng.spec_k:
         stats.update(spec_k=eng.spec_k, acceptance_rate=eng.acceptance_rate,
                      tokens_per_forward=(generated_tokens / eng.spec_steps

@@ -382,6 +382,42 @@ def test_spa_autograd_on_card_matches_cpu(dev):
         _grad_close(g.grad.cpu(), w.grad, "float32")
 
 
+@pytest.mark.parametrize("dtype,shape", [
+    ("float32", (33, 20, 2, 4, 2, 64)),       # the autograd test's row
+    ("bfloat16", (256, 64, 4, 24, 8, 128))])
+def test_spa_kernels_do_not_read_stale_memory(dev, dtype, shape):
+    """The SPA forward and backward kernels 12 times on one input (a query
+    that sees no key included), each time after the allocator's free
+    memory was filled with another pattern (NaN, +-1e30, 0, noise), so
+    that every buffer the wrappers allocate starts with it: the output
+    and the three gradients are bitwise the first run's. A read of memory
+    the kernels did not write, or a race between their threads, would
+    show as a difference."""
+    q, k, v, pos, seg = _packed(dev, dtype, 5, *shape)
+    q_pos, q_seg = pos.clone(), seg.clone()
+    q_pos[0, 3], q_seg[0, 3] = -1, 99  # a query that sees no key
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    first = None
+    for fill in [float("nan"), 1e30, -1e30, 0.0, None] * 2 + [None, None]:
+        junk = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+        if fill is None:
+            junk.normal_(generator=gen)
+        else:
+            junk.fill_(fill)
+        torch.cuda.synchronize()
+        del junk                        # back to the allocator's cache
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = spa_attention(*leaves, q_pos, pos, q_seg, seg)
+        out.backward(dout)
+        got = [out.detach()] + [t.grad for t in leaves]
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+        if first is None:
+            first = [g.clone() for g in got]
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
 SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0,
                      1.00390625, 1.01171875,        # bf16 ties: even, odd
                      1e-40, -1e-40, 1e-45,          # f32 denormals
@@ -1359,3 +1395,119 @@ def test_rope_angles_equal_on_card_and_cpu(dev, head_dim, theta):
     got = apply_rope(x.to(dev), pos.to(dev), theta).cpu()
     torch.testing.assert_close(got, apply_rope(x, pos, theta), atol=1e-5,
                                rtol=1e-5)
+
+
+# ---------------------------------------------------------------------
+# the sliding window on the paged plane
+# ---------------------------------------------------------------------
+
+def _reduced_windowed(arch, window=32):
+    """Reduced long_context_variant llama3.2-3b or mla_dense (2 layers,
+    f32), window 32 (``reduced_config``) or ``window``."""
+    import dataclasses
+    from repro_torch.configs import (get_config, long_context_variant,
+                                     reduced_config)
+    cfg = (_reduced_mla_dense() if arch == "mla_dense" else
+           reduced_config(get_config("llama3.2-3b")))
+    return dataclasses.replace(long_context_variant(cfg),
+                               sliding_window=window)
+
+
+@pytest.mark.parametrize("drain,spec_k", [(1, 0), (3, 0), (1, 3)])
+@pytest.mark.parametrize("arch", ["llama", "mla_dense"])
+def test_windowed_engine_on_card_matches_cpu(dev, arch, drain, spec_k):
+    """Greedy serving of the reduced windowed model (window 32, page 8,
+    prompts of 20-64 tokens, 48 new): the window slides past prompt and
+    response pages; the card (kernels, windowed) gives the CPU's tokens,
+    reclaimed pages and peak pages, at D 1 and D 3 and with spec."""
+    from repro_torch.launch.serve import serve_paged
+    from repro_torch.models import init
+    cfg = _reduced_windowed(arch)
+    p_cpu = init(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(3, 500, size=(n,)).astype(np.int32)
+               for n in (20, 37, 51, 64)]
+    kw = dict(max_prompt_len=64, max_new=48, num_slots=2, page_size=8,
+              temperature=0.0, seed=0, drain_interval=drain, spec_k=spec_k)
+    out = []
+    for where, params in ((dev, _to_dev(p_cpu, dev)), ("cpu", p_cpu)):
+        done, stats = serve_paged(cfg, prompts, device=where, params=params,
+                                  **kw)
+        out.append(({c.request_id: c.response_ids.tolist() for c in done},
+                    stats["reclaimed_pages"], stats["peak_pages"]))
+    assert out[0] == out[1] and out[0][1] > 0
+
+
+def test_windowed_decode_graph_replay_matches_eager_step(dev):
+    """The windowed reduced llama's D 3 decode block on the card, sampled
+    at temperature 1 with captured logprobs: replays of the captured
+    graph give the tokens, logprobs and reclaimed pages of the same step
+    run eagerly on the card (an engine whose graph is dropped)."""
+    from repro_torch.core.paged import PagedGroupEngine
+    from repro_torch.models import init
+    cfg = _reduced_windowed("llama")
+    params = _to_dev(init(cfg, seed=0, device="cpu"), dev)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(3, 500, size=(n,)).astype(np.int32)
+               for n in (30, 9, 47)]
+    kw = dict(num_slots=4, page_size=8, num_pages=0, max_prompt_len=48,
+              max_new_tokens=40, group_size=2, temperature=1.0,
+              drain_interval=3)
+    out = []
+    for graph in (True, False):
+        eng = PagedGroupEngine(cfg, device=dev, **kw)
+        eng.set_params(params)
+        if not graph:
+            eng._graph = None          # _run_step calls the step itself
+        hs = [eng.submit(p, (7, i)) for i, p in enumerate(prompts)]
+        while eng.step():
+            pass
+        torch.cuda.synchronize()
+        assert (eng.graph_replays > 0) == graph and eng.reclaimed_pages > 0
+        out.append(([h.result(0) for h in hs], eng.reclaimed_pages,
+                    eng.decode_steps))
+    assert out[0][1:] == out[1][1:]
+    for a, b in zip(out[0][0], out[1][0]):
+        assert torch.equal(a.response_ids, b.response_ids)
+        torch.testing.assert_close(a.response_logprobs, b.response_logprobs,
+                                   atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["llama", "mla_dense"])
+def test_windowed_grad_step_on_card_matches_cpu(dev, arch):
+    """A captured grad step of the reduced model with a window of 8 on an
+    SPA-packed row (positions up to 35, so the window masks keys inside
+    the row): the card (SPA forward and backward kernels with the window;
+    MLA's expanded attention) against the CPU, within 2e-4 of each leaf's
+    largest entry."""
+    from repro_torch.configs.base import RLConfig
+    from repro_torch.core.queue import RolloutGroup
+    from repro_torch.core.spa import pack_spa
+    from repro_torch.models import init
+    from repro_torch.rl.grpo import make_grad_step_captured, to_device
+    cfg = _reduced_windowed(arch, window=8)
+    rng = np.random.RandomState(2)
+    G, Lp, T = 4, 20, 16
+    lens = rng.randint(3, T + 1, size=G).astype(np.int32)
+    resp = np.zeros((G, T), np.int32)
+    for g in range(G):
+        resp[g, :lens[g]] = rng.randint(3, 500, size=lens[g])
+    group = RolloutGroup(uid=0, prompt_ids=rng.randint(3, 500, size=Lp)
+                         .astype(np.int32), response_ids=resp,
+                         response_len=lens, rewards=np.zeros(G, np.float32),
+                         weight_version=0,
+                         response_logprobs=-rng.rand(G, T).astype(np.float32))
+    mb = pack_spa(group, rng.randn(G).astype(np.float32), Lp, T,
+                  responses_per_row=G)
+    p_cpu = init(cfg, seed=0, device="cpu")
+    r_cpu = init(cfg, seed=1, device="cpu")
+    step = make_grad_step_captured(cfg, RLConfig())
+    n0 = LAUNCHES["spa_attention_bwd"]
+    g_gpu, _ = step(_to_dev(p_cpu, dev), None, _to_dev(r_cpu, dev),
+                    to_device(mb, dev))
+    assert LAUNCHES["spa_attention_bwd"] == n0 + (
+        0 if cfg.use_mla else cfg.num_layers)
+    g_cpu, _ = step(p_cpu, None, r_cpu, to_device(mb, "cpu"))
+    for a, b in zip(_leaves(g_gpu), _leaves(g_cpu)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 2e-4 * float(b.abs().max()), err

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # test workers share the cores: no intra-op pool
 
 import jax  # noqa: E402
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # test workers share the cores: no intra-op pool
 
 import jax  # noqa: E402
 
@@ -101,8 +102,13 @@ def test_admission_waits_for_pages(setup):
     (("window", dict(spec_k=2)), "sliding-window"),
     ("window", "sliding-window"),
     ("moe", "MoE"),
+    ("ssm", "SSM"),
 ])
 def test_engine_rejects_unported_configs(change, match):
+    """Sliding-window configs (GQA and MLA, with spec decode and the radix
+    cache riding along) and MoE configs build, each plane giving its
+    reason (a window's is page reclamation); a windowed MoE config trains.
+    An SSM config is still refused."""
     cfg = reduced_config(get_config("llama3.2-3b"))
     kw = _kw(1)
     if isinstance(change, tuple):
@@ -111,21 +117,33 @@ def test_engine_rejects_unported_configs(change, match):
     if change in ("window", "mla_window"):
         cfg = dataclasses.replace(cfg, sliding_window=32,
                                   use_mla=change == "mla_window")
+        eng = PagedGroupEngine(cfg, device="cpu", **kw)
+        assert eng.window == 32 and eng.spec_k == kw.get("spec_k", 0)
+        assert (eng.radix is not None) == kw.get("prefix_cache", False)
+        ok, reason = engine_support(cfg, "paged")
+        assert ok and match in reason and "reclaimed" in reason, reason
+        for plane, word in (("spec", "reclamation"),
+                            ("prefix", "window-dead")):
+            ok, reason = engine_support(cfg, plane)
+            assert ok and word in reason, reason
     elif change == "moe":
-        # MoE is served and trained; a sliding window still is not
+        # MoE is served and trained, with a sliding window too
         cfg = dataclasses.replace(cfg, num_experts=4, num_experts_per_tok=2,
                                   moe_d_ff=128)
         PagedGroupEngine(cfg, device="cpu", **kw)
         ok, reason = engine_support(cfg, "train")
         assert ok and match in reason and "aux" in reason, reason
         cfg = dataclasses.replace(cfg, sliding_window=32)
-        with pytest.raises(ValueError, match="sliding-window"):
-            require_engine_support(cfg, "train")
-        return
+        require_engine_support(cfg, "train")
+        ok, reason = engine_support(cfg, "train")
+        assert ok and "32-token window" in reason, reason
     else:
-        kw.update(change)
-    with pytest.raises(ValueError, match=match):
-        PagedGroupEngine(cfg, device="cpu", **kw)
+        cfg = dataclasses.replace(cfg, family="ssm", ssm_state_size=16,
+                                  sliding_window=32)
+        with pytest.raises(ValueError, match=match):
+            PagedGroupEngine(cfg, device="cpu", **kw)
+        for plane in ("spec", "prefix", "train"):
+            assert not engine_support(cfg, plane)[0]
 
 
 def test_submit_rejects_a_group_that_never_fits(setup):

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # test workers share the cores: no intra-op pool
 
 import jax  # noqa: E402
 
@@ -28,6 +29,7 @@ from repro.core.radix import RadixCache as JaxRadix  # noqa: E402
 from repro.launch.serve import serve_shared as jax_serve_shared  # noqa: E402
 from repro.models import init as jax_init  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs.base import engine_support  # noqa: E402
 from repro_torch.convert import from_jax  # noqa: E402
 from repro_torch.core.paged import (FIRST_PAGE, PageAllocator,  # noqa: E402
                                     PagedGroupEngine)
@@ -289,7 +291,14 @@ def test_serve_shared_matches_jax(setup):
 
 
 def test_prefix_plane_refuses_what_the_port_lacks():
+    """A sliding-window config takes the radix cache (its window-dead
+    leading pages are never cached); an SSM config is refused."""
     cfg = dataclasses.replace(reduced_config(get_config("llama3.2-3b")),
                               sliding_window=16)
-    with pytest.raises(ValueError, match="sliding-window"):
+    eng = PagedGroupEngine(cfg, device="cpu", **_kw(prefix_cache=True))
+    assert eng.radix is not None and eng.window == 16
+    ok, reason = engine_support(cfg, "prefix")
+    assert ok and "window-dead" in reason, reason
+    cfg = dataclasses.replace(cfg, family="ssm", ssm_state_size=16)
+    with pytest.raises(ValueError, match="SSM"):
         PagedGroupEngine(cfg, device="cpu", **_kw(prefix_cache=True))
