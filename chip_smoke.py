@@ -32,7 +32,13 @@ Phases, each printing one JSON line (every phase fails the run on error):
      rollout engine's (B 8, S 5, contexts up to 196, f32), a suffix
      prefill (B 1, 512 tokens after 512 cached, bf16) and a windowed
      case; the contiguous-cache decode_attention and verify_attention
-     wrappers (the same two kernels on a one-page-per-row view). Each
+     wrappers (the same two kernels on a one-page-per-row view), the
+     former also at phase 20's shape (B 8 rows of phase 3's prompts
+     left-padded to 1024, L 1056, the Sampler's layout: padding INVALID)
+     and over a rotated sliding-window ring (window = L = 8192, slots out
+     of position order, one row not wrapped, 5 % INVALID padding), and
+     the contiguous MLA wrapper (mla_decode_attention: the MLA kernel on B
+     pages of length L) at phase 20's mla_dense shape. Each
      decode / verify case also prints how the wrapper launched it (regime:
      Split-L or query tiles; context splits; blocks of the main kernel)
      and the share of its bound reached (bound_ms / ms);
@@ -266,6 +272,32 @@ The profile phases also time each replay with CUDA events
      on, and radix warm tokens equal cold ones (card and CPU) where the
      suffix's first query sees pages below its first live page.
 
+ 20. group_sampler (last): the group-at-a-time Sampler over a dense
+     cache, the first model path through the contiguous decode wrappers.
+     (a) sampler_serve: serve_batch on full-width llama3.2-3b, then on
+     full-width mla_dense (27 layers), bf16, random weights from --seed:
+     phase 3's 8 prompts left-padded to 1024, 32 new tokens, temperature
+     0.7, one call of B 8 after a one-request warm-up; wall, tok/s, peak
+     memory and launches by wrapper, checked: the contiguous decode
+     wrapper (llama) or the contiguous MLA wrapper launches layers x 31
+     (the last step's forward, whose logits nothing reads, is not run),
+     the SPA forward 28 (llama's one prefill forward; MLA's prefill is
+     plain PyTorch), every other kernel 0; greedy tokens of the first 4
+     requests against a second, eager run with the plain versions on the
+     card, a difference excused only at a tie (``greedy_flips``). (b)
+     sampler_train: phase 6's run (12-layer f32 llama, N 4, G 8, prompt
+     128, response 64, SPA, bf16 wire) with rollout_engine "group": 2
+     iterations of async (staleness 0), then 3 of async_offpolicy at eta
+     1 (each iteration's staleness at most 1; its last iteration
+     profiled), launches checked against L x 63 x Sampler calls (the
+     contiguous decode wrapper) and L x (calls + 3 x captured steps) (the
+     SPA forward). (c) sampler_parity: reduced f32 llama, llama with a
+     window of 8 (prompts longer than it ride the ring), mla_dense and
+     deepseek-v2-lite with MoE on: the Sampler on the card against the
+     CPU, greedy (tokens and lengths equal, logprobs within 1e-4), and
+     sampled rows equal to the paged engine's on the card under the same
+     key (MoE off).
+
 The SPA kernels run bf16 on the tensor cores (wgmma, with the
 probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
 (register tiles, no TF32). Phase 2 also holds the SPA backward kernel
@@ -289,7 +321,7 @@ the call sees once.
 
 Then one line {"phase": "elapsed"} with the seconds from the script's
 start to its end and to the last line of each phase, then one line
-{"kernels": [...]} with seven entries: the four kernels of
+{"kernels": [...]} with ten entries: the four kernels of
 the training path at the training run's shapes and launch counts (phase
 6; the two SPA entries also carry the bf16 1024-token prefill case, the
 serving shape, under "bf16_prefill"; the paged decode entry phase 19's
@@ -304,8 +336,12 @@ the decode entry's "training" case with phase 16's launches, in all and
 per iteration, and the verify entry's "suffix_prefill" case with phase
 15's spec-off launches; both MLA entries also carry phase 17's launches
 on deepseek-v2-lite as published, the decode entry phase 18's too, as
-does the transfer_cast entry); and last {"ok": true, "device":
-{...}}.
+does the transfer_cast entry); the contiguous decode_attention with
+phase 20 (a)'s llama launches, timed at its shape (the 8k ring case and
+phase 20 (b)'s training launches beside it), verify_attention at its
+phase-2 shape with 0 launches (no model path calls it yet), and the
+contiguous MLA route (mla_decode_attention) with phase 20 (a)'s mla_dense
+launches; and last {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
 """
@@ -340,6 +376,9 @@ SPIN_CAP_CYCLES = SPIN_CYCLES << 5
 TRAIN_LAYERS = 12      # 36 bytes per f32 parameter at an update: 28 layers
 # (3.21 B parameters, ~116 GB) do not fit one 80 GB card, 12 (1.60 B) do
 TRAIN_PROMPT, TRAIN_GROUP, TRAIN_RESP = 128, 8, 64
+# phase 20 (a): the group Sampler serves phase 3's 8 prompts (left-padded
+# to 1024) x 32 new tokens in one call
+SAMPLER_LP, SAMPLER_NEW = 1024, 32
 
 
 def fail(msg: str) -> None:
@@ -834,10 +873,134 @@ def contiguous_setup(torch, dev, gen, dtype, *, verify, B=4, S=5, L=1060):
         "bytes": (2 * B * S * H * D + 2 * keys * Hkv * D) * elt
         + 4 * (kv_pos.size + q_pos.size),
         "flops": 4.0 * D * H * pairs,
-        "info": {"kernel": name, "launches_kernel": (
-            "paged_verify_attention" if verify else "paged_decode_attention"),
-            "dtype": dtype, "B": B, "S": S, "L": L, "H": H, "Hkv": Hkv,
-            "D": D, "visible_keys": keys, "visible_pairs": pairs}}
+        "info": {"kernel": name, "dtype": dtype, "B": B, "S": S, "L": L,
+                 "H": H, "Hkv": Hkv, "D": D, "visible_keys": keys,
+                 "visible_pairs": pairs}}
+
+
+def _contiguous_decode(torch, dev, gen, dtype, kv_pos, q_pos, window, info):
+    """decode_attention over a contiguous (B, L, Hkv, D) cache at
+    full-width llama heads holding ``kv_pos`` (INVALID where unwritten or
+    padding), one query a row at ``q_pos``."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    H, Hkv, D = 24, 8, 128
+    B, L = kv_pos.shape
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, L, Hkv, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, L, Hkv, D, generator=gen, device=dev).to(dt)
+    kvp = torch.from_numpy(kv_pos).to(dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    vis = _visible(np, q_pos[:, None], kv_pos, window)
+    keys = int(vis.sum())
+    mask = (kvp <= qp[:, None])
+    if window is not None:
+        mask &= (qp[:, None] - kvp) < window
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None, None, :], enable_gqa=True)
+    elt = q.element_size()
+    return {
+        "name": "decode_attention", "fn": decode_attention,
+        "plain": decode_attention_plain, "args": (q, k, v, kvp, qp),
+        "kw": {"window": window}, "library": library,
+        "bytes": (2 * q.numel() + 2 * keys * Hkv * D) * elt
+        + 4 * (kv_pos.size + B),
+        "flops": 4.0 * D * H * keys,
+        "info": {"kernel": "decode_attention", "dtype": dtype, "B": B,
+                 "L": L, "H": H, "Hkv": Hkv, "D": D, "window": window,
+                 "visible_keys": keys, **info}}
+
+
+def sampler_layout(np, lens, t: int):
+    """The group Sampler's contiguous cache in phase 20 (a)'s call at its
+    decode forward t: row b left-padded to SAMPLER_LP (padding INVALID),
+    its prompt at positions 0.. and t + 1 decode tokens after it, the rest
+    unwritten (INVALID); the query at position lens[b] + t. Returns
+    (kv_pos (B, SAMPLER_LP + SAMPLER_NEW), q_pos (B,))."""
+    lens = np.asarray(lens)[:, None]
+    i = np.arange(SAMPLER_LP + SAMPLER_NEW)[None]
+    start = SAMPLER_LP - lens
+    live = (i >= start) & (i <= SAMPLER_LP + t)
+    kv_pos = np.where(live, i - start, 2 ** 30).astype(np.int32)
+    return kv_pos, (lens[:, 0] + t).astype(np.int32)
+
+
+def sampler_decode_setup(torch, dev, gen, dtype):
+    """The contiguous decode wrapper at phase 20 (a)'s shape: B 8 rows of
+    phase 3's prompt lengths in the Sampler's layout, at its last decode
+    forward (t = SAMPLER_NEW - 2)."""
+    import numpy as np
+    lens = phase3_lens(np, 0)
+    kv_pos, q_pos = sampler_layout(np, lens, SAMPLER_NEW - 2)
+    return _contiguous_decode(torch, dev, gen, dtype, kv_pos, q_pos, None,
+                              {"layout": "group Sampler, left-padded"})
+
+
+def ring_decode_setup(torch, dev, gen, dtype, *, B=4, L=8192):
+    """The contiguous decode wrapper over a sliding-window ring (window =
+    L = 8192, long_context_variant's): each row's last L positions up to
+    its query sit at slot (position mod L), out of position order; one row
+    has not wrapped (its unwritten slots INVALID) and 5 % of the slots are
+    INVALID padding."""
+    import numpy as np
+    rng = np.random.RandomState(L + B)
+    q_pos = np.linspace(L // 2, 3 * L, B).astype(np.int32)
+    i = np.arange(L)[None]
+    q = q_pos[:, None]
+    kv_pos = q - (q - i) % L
+    kv_pos = np.where((kv_pos < 0) | (rng.rand(B, L) < 0.05), 2 ** 30,
+                      kv_pos).astype(np.int32)
+    return _contiguous_decode(torch, dev, gen, dtype, kv_pos, q_pos, L,
+                              {"layout": "ring, rotated"})
+
+
+def sampler_mla_setup(torch, dev, gen, dtype):
+    """The contiguous MLA wrapper (mla_decode_attention) at phase 20 (a)'s
+    mla_dense shape: full-width heads over the Sampler's latent cache of B
+    8 rows, L SAMPLER_LP + SAMPLER_NEW slots viewed as B pages of length
+    L, at the last decode forward."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        mla_decode_attention, mla_decode_attention_plain)
+    H, r, rd, nd = MLA_HEADS
+    scale = (nd + rd) ** -0.5
+    lens = phase3_lens(np, 0)
+    kv_pos, q_pos = sampler_layout(np, lens, SAMPLER_NEW - 2)
+    B, L = kv_pos.shape
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, H, r + rd, generator=gen, device=dev).to(dt)
+    ckv = torch.randn(B, L, r, generator=gen, device=dev).to(dt)
+    kr = torch.randn(B, L, rd, generator=gen, device=dev).to(dt)
+    kvp = torch.from_numpy(kv_pos).to(dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    keys = int(_visible(np, q_pos[:, None], kv_pos, None).sum())
+
+    def library():
+        k = torch.cat([ckv, kr], dim=-1)[:, None]
+        m = (kvp <= qp[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, ckv[:, None], attn_mask=m, scale=scale,
+            enable_gqa=True)
+    elt = q.element_size()
+    return {
+        "name": "mla_decode_attention", "fn": mla_decode_attention,
+        "plain": mla_decode_attention_plain,
+        "args": (q, ckv, kr, kvp, qp), "kw": dict(scale=scale),
+        "library": library,
+        "bytes": (B * H * ((r + rd) + r) + keys * (r + rd)) * elt
+        + 4 * (kv_pos.size + B),
+        "flops": 2.0 * keys * H * ((r + rd) + r),
+        "info": {"kernel": "mla_decode_attention", "dtype": dtype, "B": B,
+                 "L": L, "page": L, "H": H, "r": r, "rd": rd,
+                 "scale": scale, "visible_keys": keys,
+                 "layout": "group Sampler, left-padded"}}
 
 
 def paged_case(torch, timer, case):
@@ -851,7 +1014,7 @@ def paged_case(torch, timer, case):
     info = case["info"]
     dtype = info["dtype"]
     got = fn(*args, **kw)
-    plan = dict(LAST_PLAN[info.get("launches_kernel", info["kernel"])])
+    plan = dict(LAST_PLAN[info["kernel"]])
     err, ok = max_err(torch, got, plain(*f32(args), **kw), TOL[dtype])
     b_ms, b_by = bound(case["bytes"], case["flops"], dtype)
     ms = timer.ms(lambda: fn(*args, **kw), 20)
@@ -878,6 +1041,10 @@ def verify_case(torch, timer, dev, gen, dtype, **kw):
 def contiguous_case(torch, timer, dev, gen, dtype, **kw):
     return paged_case(torch, timer, contiguous_setup(torch, dev, gen, dtype,
                                                      **kw))
+
+
+def setup_case(torch, timer, dev, gen, dtype, setup, **kw):
+    return paged_case(torch, timer, setup(torch, dev, gen, dtype, **kw))
 
 
 MLA_HEADS = (16, 512, 64, 128)     # H, r, rd, nd of full-width mla_dense
@@ -964,6 +1131,24 @@ def mla_case(torch, timer, dev, gen, dtype, **kw):
 # phase 3: full-width serving; phase 4: reduced parity with the CPU
 # ---------------------------------------------------------------------
 
+def phase3_lens(np, seed: int):
+    """Phase 3's 8 prompt lengths: 64 to 1024 tokens, the longest 1024."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(64, 1025, size=8)
+    lens[int(np.argmax(lens))] = 1024
+    return lens
+
+
+def phase3_prompts(np, cfg, seed: int):
+    """(lengths, prompts) of phase 3's 8 requests (random ids from
+    ``seed``); phase 20 serves the same."""
+    lens = phase3_lens(np, seed)
+    rng = np.random.RandomState(seed)
+    rng.randint(64, 1025, size=8)           # the draw of the lengths
+    return lens, [rng.randint(3, cfg.vocab_size, size=(int(n),))
+                  .astype(np.int32) for n in lens]
+
+
 def serve_full_width(torch, np, dev, seed: int):
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
@@ -975,11 +1160,7 @@ def serve_full_width(torch, np, dev, seed: int):
     params = init(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    rng = np.random.RandomState(seed)
-    lens = rng.randint(64, 1025, size=8)
-    lens[int(np.argmax(lens))] = 1024
-    prompts = [rng.randint(3, cfg.vocab_size, size=(int(n),)).astype(np.int32)
-               for n in lens]
+    lens, prompts = phase3_prompts(np, cfg, seed)
     kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
               temperature=0.7)
     eng = build_paged_engine(cfg, device=dev, **kw)
@@ -1867,17 +2048,19 @@ def run_profiled(torch, run, iterations: int):
 
 def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
                      drain: int = 1, profile: bool = False, cfg=None,
-                     phase: str = "train", hook=None):
+                     phase: str = "train", hook=None, engine: str = "paged",
+                     mode: str = "async"):
     """Phase 6's run (phase 16's with ``cfg`` full-depth f32 mla_dense,
-    phase 18's with 3-layer f32 deepseek-v2-lite). ``profile``: its last
-    iteration runs under torch.profiler (``run_profiled``). ``hook(sched,
-    parts)`` runs once the pipeline is built, before the first
-    iteration."""
+    phase 18's with 3-layer f32 deepseek-v2-lite; phase 20's with
+    ``engine="group"``, the group Sampler, in ``mode`` async or
+    async_offpolicy at eta 1). ``profile``: its last iteration runs under
+    torch.profiler (``run_profiled``). ``hook(sched, parts)`` runs once the
+    pipeline is built, before the first iteration."""
     from repro_torch.configs.base import RLConfig
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
     from repro_torch.launch.train import build_pipeline
     cfg = train_config() if cfg is None else cfg
-    rl = RLConfig(mode="async", rollout_engine="paged",
+    rl = RLConfig(mode=mode, staleness_eta=1, rollout_engine=engine,
                   num_inference_instances=1, cbatch_slots=8,
                   batch_prompts=4, group_size=TRAIN_GROUP,
                   max_prompt_len=TRAIN_PROMPT, max_response_len=TRAIN_RESP,
@@ -1908,6 +2091,14 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
             torch, store.snapshot()[0], params)])
         return v
     sched.transfer.ensure = checked_ensure
+    sampler, calls = parts["sampler"], [0]
+    if sampler is not None:
+        generate = sampler.generate
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return generate(*a, **kw)
+        sampler.generate = counted
     if hook is not None:
         hook(sched, parts)
     reset_launch_counts()
@@ -1920,8 +2111,12 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
     peaks.append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     launches = dict(LAUNCHES)
     tri = parts["tri"]
-    staged_ok = store.staged_version == iterations and _pool_is_bf16_policy(
-        torch, store.staged_params(), tri.policy)
+    if sampler is None:     # a paged engine's flip waits for the boundary
+        staged_ok = store.staged_version == iterations and \
+            _pool_is_bf16_policy(torch, store.staged_params(), tri.policy)
+    else:                   # the group engine's lands with its buckets
+        staged_ok = store.version == iterations and _pool_is_bf16_policy(
+            torch, store.snapshot()[0], tri.policy)
     L = cfg.num_layers
     prefills = sum(h.metrics["prefills"] for h in hist)
     steps = sum(h.metrics["decode_steps"] for h in hist)
@@ -1940,8 +2135,18 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
         other_verify: no, other_decode: no,
         "transfer_cast": f"leaves*publishes = {n_leaves}*{publishes}",
     }
-    expect = {verify: 0, decode: L * (steps + warm), other_verify: 0,
-              other_decode: 0, "transfer_cast": n_leaves * publishes}
+    expect = {name: 0 for name in launches}
+    expect.update({verify: 0, decode: L * (steps + warm), other_verify: 0,
+                   other_decode: 0, "transfer_cast": n_leaves * publishes})
+    if sampler is not None:
+        # one prefill a Sampler call, then max_response_len - 1 decode
+        # forwards through the contiguous wrapper
+        prefills = calls[0]
+        step = "mla_decode_attention" if cfg.use_mla else "decode_attention"
+        expect[step] = L * (rl.max_response_len - 1) * calls[0]
+        formula[step] = (f"L*(max_response_len - 1)*Sampler calls = "
+                         f"{L}*{rl.max_response_len - 1}*{calls[0]}")
+        formula[decode] = "0 (the group engine)"
     if cfg.use_mla:
         # MLA's prefill and training attention is its expanded form in
         # plain PyTorch (autograd for the gradient), as in the JAX package
@@ -1967,7 +2172,10 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
         "max_response_len": rl.max_response_len, "slots": rl.cbatch_slots,
         "spa": True, "capture_logprobs": True, "wire_dtype": "bfloat16",
         "overlap": True, "drain_interval": drain, "setup_s": setup_s,
-        "graph": parts["pool"].instances[0].paged_engine.capture_ms,
+        "engine": engine, "staleness_eta": rl.staleness_eta,
+        "sampler_calls": calls[0],
+        "graph": (None if sampler is not None else
+                  parts["pool"].instances[0].paged_engine.capture_ms),
         "iterations": [{
             "iteration": h.iteration, "wall_s": h.wall_time,
             "infer_s": h.infer_time, "train_s": h.train_time,
@@ -1994,18 +2202,21 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
         "start_mem_gib": start_mem,
         "peak_mem_gib": max(peaks), "setup_peak_mem_gib": peaks[0],
         "mem_gib": torch.cuda.memory_allocated(dev) / 2 ** 30,
-        # the store holds the engine's copy, not the landed tree: the
-        # served weights are resident once
-        "store_holds_engine_tree": store.snapshot()[0] is
-        parts["pool"].instances[0].paged_engine.params,
     }
-    if not out["store_holds_engine_tree"]:
-        fail(f"{phase}: the store holds a second copy of the served "
-             f"weights")
+    if sampler is None:
+        # the store holds the engine's copy, not the landed tree: the
+        # served weights are resident once (the Sampler copies nothing)
+        out["store_holds_engine_tree"] = store.snapshot()[0] is \
+            parts["pool"].instances[0].paged_engine.params
+        if not out["store_holds_engine_tree"]:
+            fail(f"{phase}: the store holds a second copy of the served "
+                 f"weights")
     if busy is not None and not busy["busy_ms"] > 0:
         fail(f"{phase}: torch.profiler recorded no kernel in the last "
              f"iteration")
-    if any(h.max_staleness != 0 or h.trained_tokens <= 0 for h in hist):
+    eta = rl.staleness_eta if mode == "async_offpolicy" else 0
+    if any(not 0 <= h.max_staleness <= eta or h.trained_tokens <= 0
+           for h in hist):
         fail(f"{phase}: staleness or empty iteration: {out['iterations']}")
     if tri.version != iterations:
         fail(f"{phase}: tri.version {tri.version} != {iterations}")
@@ -2014,7 +2225,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
         fail(f"{phase}: pool leaves are not the bf16-rounded policy: {flips}, "
              f"staged {staged_ok}")
     if launches != expect or 0 in (v for k, v in expect.items()
-                                   if formula[k][0] != "0"):
+                                   if formula.get(k, "0")[0] != "0"):
         fail(f"{phase}: launches {launches} != expected {expect} ({formula})")
     if not all(bool(torch.isfinite(t).all())
                for t in _tree_leaves(tri.policy)):
@@ -3286,7 +3497,7 @@ class StepLogits:
 
 
 def greedy_flips(np, warm: dict, cold: dict, lw: StepLogits,
-                 lc: StepLogits) -> dict:
+                 lc: StepLogits, what: str = "window radix") -> dict:
     """Warm against cold greedy tokens. A request whose tokens differ is
     excused only at its first difference t, and only where the two
     tokens chosen there are within the card's own disagreement: both runs
@@ -3303,13 +3514,13 @@ def greedy_flips(np, warm: dict, cold: dict, lw: StepLogits,
                  min(len(w), len(c)))
         if (rid, t) not in lw.logits or (rid, t) not in lc.logits or \
                 t >= len(w) or t >= len(c):
-            fail(f"window radix: request {rid} warm {w[:t + 2]} vs cold "
+            fail(f"{what}: request {rid} warm {w[:t + 2]} vs cold "
                  f"{c[:t + 2]}: no logits at the difference")
         a, b = lw.logits[rid, t], lc.logits[rid, t]
         gap = float(b[c[t]] - b[w[t]])
         noise = float(np.abs(a - b).max())
         if not 0 <= gap <= noise <= WINDOW_LOGIT_TOL:
-            fail(f"window radix: request {rid} warm {w} != cold {c} at "
+            fail(f"{what}: request {rid} warm {w} != cold {c} at "
                  f"t {t}: cold gap {gap} > the logits' difference {noise}")
         flips[rid] = (t, gap, noise)
     return flips
@@ -3534,6 +3745,263 @@ def window_serve(torch, np, dev, seed: int, timer, smi: str):
     yield from window_parity(torch, np, dev, seed)
 
 
+# ---------------------------------------------------------------------
+# phase 20: the group-at-a-time Sampler on a dense (and ring) cache
+# ---------------------------------------------------------------------
+
+class plain_kernels:
+    """Within the block, models/attention.py calls the plain versions in
+    place of the SPA wrapper and the contiguous decode wrappers: the same
+    model path, eager PyTorch on the card, no kernel of the port."""
+
+    def __init__(self):
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels.spa_attention import chunked_attention
+        from repro_torch.models import attention
+
+        def spa(q, k, v, q_pos, kv_pos, q_seg, kv_seg, *, scale=None,
+                window=None, chunk_size=512):
+            return chunked_attention(q, k, v, q_pos, kv_pos, q_seg, kv_seg,
+                                     window=window, chunk_size=chunk_size,
+                                     scale=scale)
+        self.mod = attention
+        self.swap = {"spa_attention": spa,
+                     "decode_attention": da.decode_attention_plain,
+                     "mla_decode_attention": da.mla_decode_attention_plain}
+        self.saved = {}
+
+    def __enter__(self):
+        for name, fn in self.swap.items():
+            self.saved[name] = getattr(self.mod, name)
+            setattr(self.mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+class SamplerLogits:
+    """Within the block, every Sampler step's logits (B, V), copied to the
+    host, keyed (row, t) as ``StepLogits`` keys an engine's, so that
+    ``greedy_flips`` can read them."""
+
+    def __init__(self, torch):
+        from repro_torch.rl import rollout
+        self.mod, self.logits = rollout, {}
+        self.orig = rollout._sample_token_rows
+        self.t = 0
+
+        def recorded(logits, *a, **kw):
+            host = logits.float().cpu().numpy()
+            for b in range(host.shape[0]):
+                self.logits[b, self.t] = host[b]
+            self.t += 1
+            return self.orig(logits, *a, **kw)
+        self.recorded = recorded
+
+    def __enter__(self):
+        self.mod._sample_token_rows = self.recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._sample_token_rows = self.orig
+
+
+def _rows(out) -> dict:
+    """A RolloutBatch's rows up to their lengths, keyed by row."""
+    ids, lens = out.response_ids.tolist(), out.response_len.tolist()
+    return {b: ids[b][: lens[b]] for b in range(len(ids))}
+
+
+def sampler_serve(torch, np, dev, cfg, seed: int, smi: str):
+    """Phase 20 (a) on one model: ``serve_batch`` (the group Sampler, no
+    capture, temperature 0.7) over phase 3's 8 prompts x SAMPLER_NEW new
+    tokens in one call of B 8, after a warm-up call of one request (cuBLAS
+    handles, the allocator); then the same call with one new token (the
+    prefill alone), whose wall, taken from the first's, gives the wall
+    per decode step. The counts are reset just before the measured
+    call and read just after: the contiguous decode wrapper (GQA) or the
+    contiguous MLA wrapper launches layers x (SAMPLER_NEW - 1) times (the
+    last step's forward, whose logits nothing reads, is not run), the SPA
+    forward (GQA) layers times, every other kernel 0. Then greedy tokens of
+    the first 4 requests against a second, eager run with the plain
+    versions on the card (``plain_kernels``): a difference is excused only
+    at a tie (``greedy_flips``)."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init
+    from repro_torch.rl.rollout import Sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    params = init(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    lens, prompts = phase3_prompts(np, cfg, seed)
+    kw = dict(max_prompt_len=SAMPLER_LP, max_new=SAMPLER_NEW,
+              temperature=0.7, seed=seed, device=dev, params=params)
+    serve_batch(cfg, prompts[:1], **kw)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out, stats = serve_batch(cfg, prompts, **kw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    L = cfg.num_layers
+    step = "mla_decode_attention" if cfg.use_mla else "decode_attention"
+    expect = {name: 0 for name in launches}
+    expect[step] = L * (SAMPLER_NEW - 1)
+    expect["spa_attention"] = 0 if cfg.use_mla else L
+    if launches != expect:
+        fail(f"sampler_serve {cfg.name}: launches {launches} != {expect}")
+    rows = _rows(out)
+    for b, r in rows.items():
+        if not 1 <= len(r) <= SAMPLER_NEW or \
+                not all(0 <= t < cfg.vocab_size for t in r):
+            fail(f"sampler_serve {cfg.name}: row {b} bad tokens {r}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # where the wall goes: the same call with one new token runs the
+    # prefill and no decode forward
+    _, only = serve_batch(cfg, prompts, **{**kw, "max_new": 1})
+    # greedy: the kernels against the plain versions, both on the card
+    greedy = Sampler(cfg, SAMPLER_LP, SAMPLER_NEW, temperature=0.0,
+                     capture_logprobs=False, device=dev)
+    with SamplerLogits(torch) as lk:
+        got = _rows(greedy.generate(params, prompts[:4], seed))
+    with plain_kernels(), SamplerLogits(torch) as lp:
+        want = _rows(greedy.generate(params, prompts[:4], seed))
+    flips = greedy_flips(np, got, want, lk, lp, what=f"sampler {cfg.name}")
+    del params
+    return {
+        "phase": "sampler_serve", "arch": cfg.name, "layers": L,
+        "dtype": cfg.param_dtype, "card": smi, "init_s": init_s,
+        "requests": len(prompts), "B": len(prompts),
+        "prompt_lens": [int(n) for n in lens], "max_prompt_len": SAMPLER_LP,
+        "max_new": SAMPLER_NEW, "temperature": 0.7,
+        "wall_s": stats["wall_s"], "generated_tokens":
+        stats["generated_tokens"], "tok_per_s": stats["tok_per_s"],
+        "prefill_call_s": only["wall_s"],
+        "decode_ms_per_step": (stats["wall_s"] - only["wall_s"])
+        / (SAMPLER_NEW - 1) * 1e3,
+        "peak_mem_gib": peak, "launches": launches,
+        "expected_launches": expect,
+        "launch_formula": {step: f"L*(max_new - 1) = {L}*{SAMPLER_NEW - 1}"
+                           " (the last step's forward is not run)",
+                           "spa_attention": "0 (MLA: expanded prefill)"
+                           if cfg.use_mla else f"L = {L} (one prefill)"},
+        "greedy_vs_plain_requests": 4,
+        "greedy_equal": sum(got[b] == want[b] for b in got),
+        "greedy_tie_flips": {str(b): v for b, v in flips.items()},
+        "first_tokens": [rows[b][:8] for b in range(2)],
+    }
+
+
+def _sampler_parity_cfgs():
+    """Phase 20 (c)'s reduced f32 configs: llama, llama with a window of 8
+    (prompts longer than it ride the ring), mla_dense and
+    deepseek-v2-lite with MoE on."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    llama = reduced_config(get_config("llama3.2-3b"))
+    return {"llama": llama,
+            "llama_window8": dataclasses.replace(llama, sliding_window=8),
+            "mla_dense": reduced_config(mla_dense_config()),
+            "deepseek_moe": reduced_config(get_config(
+                "deepseek-v2-lite-16b"))}
+
+
+def sampler_parity(torch, np, dev, seed: int):
+    """Phase 20 (c): on each reduced f32 model the Sampler on the card
+    (kernels) against the CPU (plain versions), greedy: tokens and lengths
+    equal, logprobs within 1e-4 (the paged card tests' bar), the step
+    wrapper launched layers x (max_new - 1) times; then sampled at
+    temperature 1 under one key, every row's tokens equal to the port's
+    paged engine's row on the card (MoE off: its capacity follows each
+    forward's token count, which the two engines size differently)."""
+    from repro_torch.core.paged import PagedGroupEngine
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import init
+    from repro_torch.rl.rollout import Sampler
+    rng = np.random.RandomState(seed + 20)
+    prompts = [rng.randint(3, 500, size=(n,)).astype(np.int32)
+               for n in (5, 19, 33, 40)]
+    Lp, T, G = 40, 12, 4
+    out = {}
+    for name, cfg in _sampler_parity_cfgs().items():
+        p_cpu = init(cfg, seed=seed, device="cpu")
+        p_gpu = _to(p_cpu, dev)
+        runs = []
+        for where, params in ((dev, p_gpu), ("cpu", p_cpu)):
+            n0 = dict(LAUNCHES)
+            o = Sampler(cfg, Lp, T, temperature=0.0, device=where).generate(
+                params, prompts, seed)
+            torch.cuda.synchronize()
+            runs.append([t.cpu() for t in o])
+            n = {k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
+            step = "mla_decode_attention" if cfg.use_mla else \
+                "decode_attention"
+            if where == dev and n[step] != cfg.num_layers * (T - 1):
+                fail(f"sampler_parity {name}: {step} launched {n[step]} "
+                     f"!= {cfg.num_layers} x {T - 1}")
+        (gi, gl, gp), (ci, cl, cp) = runs
+        lp_err = float((gp - cp).abs().max())
+        line = {"tokens_equal": bool(torch.equal(gi, ci)),
+                "lengths_equal": bool(torch.equal(gl, cl)),
+                "logprob_max_err": lp_err,
+                "logprobs_close": bool(torch.allclose(gp, cp, atol=1e-4,
+                                                      rtol=1e-4))}
+        if not all(v for k, v in line.items() if k != "logprob_max_err"):
+            fail(f"sampler_parity {name}: card != CPU: {line}")
+        if not cfg.is_moe:
+            key = (seed, 20)
+            group = Sampler(cfg, Lp, T, temperature=1.0, device=dev
+                            ).generate(p_gpu, [prompts[2]] * G, key)
+            eng = PagedGroupEngine(
+                cfg, num_slots=G, page_size=8, num_pages=0,
+                max_prompt_len=Lp, max_new_tokens=T, group_size=G,
+                temperature=1.0, device=dev)
+            eng.set_params(p_gpu)
+            h = eng.submit(prompts[2], key)
+            while eng.step():
+                pass
+            torch.cuda.synchronize()
+            paged = h.result(timeout=0)
+            same = _rows(group) == {b: r.tolist() for b, r in
+                                    enumerate(h.host_rows())}
+            line["sampled_equal_paged_engine"] = bool(
+                same and torch.equal(group.response_len.cpu(),
+                                     paged.response_len))
+            if not line["sampled_equal_paged_engine"]:
+                fail(f"sampler_parity {name}: sampled rows {_rows(group)} "
+                     f"!= the paged engine's {h.host_rows()}")
+            del eng
+        out[name] = line
+    return {"phase": "sampler_parity", "prompt_lens": [5, 19, 33, 40],
+            "max_prompt_len": Lp, "max_new": T, "G": G, "models": out}
+
+
+def group_sampler(torch, np, dev, seed: int, smi: str):
+    """Phase 20, one line a part: (a) sampler_serve on full-width
+    llama3.2-3b and mla_dense in bf16; (b) phase 6's training run on the
+    group engine, 2 iterations of async (staleness 0), then 3 of
+    async_offpolicy at eta 1 (each group's staleness at most 1), the last
+    iteration profiled; (c) sampler_parity."""
+    from repro_torch.configs import get_config
+    for cfg in (get_config("llama3.2-3b"), mla_dense_config()):
+        yield sampler_serve(torch, np, dev, cfg, seed, smi)
+    for mode, iterations in (("async", 2), ("async_offpolicy", 3)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        yield {**train_full_width(
+            torch, np, dev, seed, iterations=iterations,
+            profile=mode != "async", engine="group", mode=mode,
+            phase="sampler_train"), "card": smi}
+    gc.collect()
+    torch.cuda.empty_cache()
+    yield sampler_parity(torch, np, dev, seed)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3625,8 +4093,19 @@ def main() -> None:
         verify_case(torch, timer, dev, gen, "bfloat16", B=4, S=SPEC_K + 1,
                     ctx_max=1060, window=256),
         contiguous_case(torch, timer, dev, gen, "bfloat16", verify=False),
-        contiguous_case(torch, timer, dev, gen, "bfloat16", verify=True),
     ]
+    # the contiguous wrappers: verify (no model path calls it yet); the
+    # group Sampler's decode at phase 20's shapes (GQA and MLA) and a
+    # rotated 8k ring
+    cont_verify = contiguous_case(torch, timer, dev, gen, "bfloat16",
+                                  verify=True)
+    sampler_dec = setup_case(torch, timer, dev, gen, "bfloat16",
+                             sampler_decode_setup)
+    ring_dec = setup_case(torch, timer, dev, gen, "bfloat16",
+                          ring_decode_setup)
+    sampler_mla = setup_case(torch, timer, dev, gen, "bfloat16",
+                             sampler_mla_setup)
+    cases += [cont_verify, sampler_dec, ring_dec, sampler_mla]
     # the MLA kernel at full-width heads
     mla = {name: mla_case(torch, timer, dev, gen, **kw)
            for name, kw in MLA_CASES.items()}
@@ -3748,6 +4227,16 @@ def main() -> None:
                     "deepseek"):
             window["launches", line["workload"][:2]] = line["launches"]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 20: the group Sampler on a dense (and ring) cache
+    sampler_lines = []
+    for line in group_sampler(torch, np, dev, args.seed, smi):
+        emit(line)
+        sampler_lines.append(line)
+    serves = [ln for ln in sampler_lines if ln["phase"] == "sampler_serve"]
+    trains = [ln for ln in sampler_lines if ln["phase"] == "sampler_train"]
+
     # the training run's launches, each kernel timed at that run's shapes
     meta = {
         "spa_attention": ("src/repro_torch/kernels/csrc/spa_attention.cu",
@@ -3839,6 +4328,31 @@ def main() -> None:
             **{case: {**{key: m[key] for key in timing + plan_keys},
                       **launched.get(case, {})}
                for case, m in more.items()}})
+    # the contiguous wrappers: decode and the MLA route with phase 20
+    # (a)'s launches (the group Sampler serving), timed at its shapes (the
+    # decode entry also at a rotated 8k ring, and with phase 20 (b)'s
+    # training launches); verify, which no model path calls yet, at its
+    # phase-2 shape
+    row += [
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:119",
+         "launches": serves[0]["launches"]["decode_attention"],
+         "launches_sampler_train": {
+             ln["mode"]: ln["launches"]["decode_attention"]
+             for ln in trains},
+         **{key: sampler_dec[key] for key in timing + plan_keys},
+         "ring_8k": {key: ring_dec[key] for key in timing + plan_keys}},
+        {"name": "verify_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_verify_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:138",
+         "launches": 0,
+         **{key: cont_verify[key] for key in timing + plan_keys}},
+        {"name": "mla_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_mla_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:277",
+         "launches": serves[1]["launches"]["mla_decode_attention"],
+         **{key: sampler_mla[key] for key in timing + plan_keys}}]
     emit({"phase": "elapsed", "total_s": time.time() - STARTED,
           "phases_end_at_s": PHASE_AT})
     emit({"kernels": row})

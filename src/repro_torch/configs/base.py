@@ -89,14 +89,26 @@ _PLANES = (SPEC_PLANE, PREFIX_PLANE, TRAIN_PLANE)
 _NOT_YET = "not ported to PyTorch yet (ROADMAP.md Queue 1)"
 
 
-def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
-    """(supported, reason) for running ``cfg`` on ``engine`` in the port:
-    the paged engine serves GQA and MLA attention, each with a dense or a
-    MoE feed-forward and with or without a sliding window (out-of-window
-    pages are reclaimed); the spec plane, the prefix plane and training
-    (the ``"train"`` plane, which ``build_pipeline`` asks) ride on it for
-    all of them; every other family waits for later slices."""
+def engine_support(cfg: ModelConfig, engine: str, *,
+                   rollout_engine: str = "paged") -> Tuple[bool, str]:
+    """(supported, reason) for running ``cfg`` on ``engine`` in the port.
+    Both rollout engines, the paged engine and the group-at-a-time
+    Sampler, run GQA and MLA attention, each with a dense or a MoE
+    feed-forward and with or without a sliding window (the paged engine
+    reclaims out-of-window pages, the Sampler keeps a ring of the
+    window's length); every other family waits for later slices. The
+    spec and prefix planes ride the paged engine only (``rollout_engine``
+    names the engine a plane is asked for); training (the ``"train"``
+    plane, which ``build_pipeline`` asks) takes either engine's rollouts."""
     if engine in _PLANES:
+        if rollout_engine == "group" and engine == SPEC_PLANE:
+            return False, ("spec decode on the group engine is the "
+                           "SpecSampler, " + _NOT_YET + " (item 2b); spec "
+                           "decode rides the paged engine")
+        if rollout_engine == "group" and engine == PREFIX_PLANE:
+            return False, ("the radix prefix cache shares pages of the "
+                           "paged pool; the group engine's dense cache has "
+                           "none")
         ok, reason = engine_support(cfg, "paged")
         if not ok:
             return ok, reason
@@ -127,14 +139,18 @@ def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
     if engine not in ROLLOUT_ENGINES:
         raise KeyError(f"unknown engine {engine!r}; known: "
                        f"{ROLLOUT_ENGINES + _PLANES}")
-    if engine == "group":
-        return False, ("the group-at-a-time Sampler engine is " + _NOT_YET
-                       + "; rollouts run on the paged engine")
     if cfg.family in ("ssm", "hybrid") or cfg.hybrid or cfg.ssm_state_size:
         return False, "SSM/hybrid recurrent state is " + _NOT_YET
     if cfg.is_encoder_decoder or cfg.vision_prefix_len:
         return False, "enc-dec and VLM prefixes are " + _NOT_YET
     ffn = "MoE" if cfg.is_moe else "dense"
+    kind = "MLA" if cfg.use_mla else "GQA"
+    if engine == "group":
+        win = ("; sliding-window: a ring of the window's length"
+               if cfg.sliding_window is not None else "")
+        rows = "(ckv, kr) latent rows" if cfg.use_mla else "per-head K/V rows"
+        return True, (f"one dense cache of {rows} a row, decoded in lock "
+                      f"step ({kind}, {ffn} FFN){win}")
     win = ("; sliding-window: out-of-window pages are reclaimed to the "
            "freelist" if cfg.sliding_window is not None else "")
     if cfg.use_mla:
@@ -142,9 +158,10 @@ def engine_support(cfg: ModelConfig, engine: str) -> Tuple[bool, str]:
     return True, f"pages hold per-head K/V rows (GQA, {ffn} FFN){win}"
 
 
-def require_engine_support(cfg: ModelConfig, engine: str) -> None:
+def require_engine_support(cfg: ModelConfig, engine: str, *,
+                           rollout_engine: str = "paged") -> None:
     # repro: allow(support-matrix): this IS the port's matrix enforcer; the engine name is its caller's literal
-    ok, reason = engine_support(cfg, engine)
+    ok, reason = engine_support(cfg, engine, rollout_engine=rollout_engine)
     if not ok:
         raise ValueError(f"{cfg.name}: engine {engine!r} is not applicable "
                          f"in the PyTorch port — {reason}")
@@ -174,8 +191,10 @@ class RLConfig:
     mode: str = "async"                # sync | async | async_offpolicy
     staleness_eta: int = 1             # off-policy baseline lookahead
     num_inference_instances: int = 4   # train:rollout ratio (paper: 1:4)
-    # "paged" (token-level continuous batching over the page pool); the
-    # "group" Sampler engine is not ported (require_engine_support raises)
+    # "paged" (token-level continuous batching over the page pool) or
+    # "group" (the group-at-a-time Sampler over a dense cache, the only
+    # engine of the async_offpolicy baseline). The JAX package defaults to
+    # "group"; the port keeps "paged", its main path
     rollout_engine: str = "paged"
     cbatch_slots: int = 8              # decode slots per paged instance
     kv_page_size: int = 16             # tokens per KV page

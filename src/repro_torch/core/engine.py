@@ -2,7 +2,12 @@
 iteration-boundary weight synchronisation (the decoupled deployment of
 paper §4.1), the port of ``src/repro/core/engine.py``.
 
-Two execution modes per instance:
+Three execution modes per instance:
+  * group — the group-at-a-time ``Sampler`` (``rl/rollout.py``): one
+            request at a time per instance, under the instance lock, over a
+            dense cache; it reads the (params, version) snapshot it took
+            and flips land whenever their buckets do (no deferral), so the
+            off-policy baseline, which flips mid-generation, runs on it;
   * paged — token-level continuous batching over a paged KV cache
             (core/paged.py): concurrent group requests from the generator's
             workers decode together one token per step, short rollouts free
@@ -15,24 +20,24 @@ Two execution modes per instance:
   * scripted — the instance returns scripted responses: the trainer's-eye
             view of a remote inference deployment, which the tests use for
             deterministic rollouts.
-The JAX package's group-at-a-time ``Sampler`` engine is not ported
-(``configs.base.engine_support``).
 
 Weights live in a :class:`~repro_torch.transfer.service.VersionedParamStore`
 per instance: readers take an atomic (params, version) snapshot, and the
 weight-plane streams versioned buckets into the store's back buffer.
 
 The producer threads and the trainer share one card on two streams: the
-paged engines issue their device work on the card's engine stream
-(``PagedGroupEngine.stream``, one a card), whichever worker thread steps
+rollout engines issue their device work on the card's engine stream
+(``device.engine_stream``, one a card), whichever worker thread drives
 them, while the trainer and the weight-plane stay on their threads'
 stream. So rollout kernels can run beside grad steps on the device, as
 the JAX package's threads overlap them (on one H100 this buys little:
 either side alone keeps the card busy, PERF.md); the hand-offs between
 the two (weights at a flip) are ordered by events
-(``PagedGroupEngine.set_params``), and rollouts reach the consumer as
-host arrays. ``busy_time`` is the wall time
-of the engine's steps, which wait only on the engine stream.
+(``PagedGroupEngine.set_params``, ``Sampler.generate``), and rollouts
+reach the consumer as host arrays: a group request runs and reads its
+batch back on the engine stream alone, so it never waits for the
+trainer's kernels. ``busy_time`` is the wall time of the engine's steps
+(of a group request), which wait only on the engine stream.
 """
 from __future__ import annotations
 
@@ -41,21 +46,27 @@ import time
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged import PagedGroupEngine
+from repro_torch.rl.rollout import RolloutBatch, Sampler
 from repro_torch.transfer.service import VersionedParamStore
 
 
 class InferenceInstance:
-    def __init__(self, inst_id: int, cfg: ModelConfig, *,
+    def __init__(self, inst_id: int, cfg: ModelConfig,
+                 sampler: Optional[Sampler] = None, *,
                  scripted_fn: Optional[Callable] = None,
                  paged_engine: Optional[PagedGroupEngine] = None):
-        if (paged_engine is None) == (scripted_fn is None):
-            raise ValueError("an instance runs either a paged engine or a "
-                             "scripted_fn (the group engine is not ported)")
+        if sum(x is not None for x in (sampler, scripted_fn,
+                                       paged_engine)) != 1:
+            raise ValueError("an instance runs exactly one of a sampler "
+                             "(the group engine), a paged engine or a "
+                             "scripted_fn")
         self.inst_id = inst_id
         self.cfg = cfg
+        self.sampler = sampler
         self.scripted_fn = scripted_fn
         self.paged_engine = paged_engine
         # the paged engine refuses a weight swap while decoding, so its
@@ -83,14 +94,33 @@ class InferenceInstance:
         never hand an iteration-t request pre-flip weights."""
         if self.paged_engine is not None:
             return self._generate_group_paged(prompts, key, min_version)
+        # group-at-a-time: serialised per instance
         with self._lock:
             # gate BEFORE the busy clock starts: time blocked on the flip
-            # is the boundary's sync-gap, not inference occupancy
-            _, version = self.store.wait_version(min_version)
+            # is the boundary's sync-gap, not inference occupancy. The
+            # (params, version) pair is one atomic snapshot: the version
+            # returned is the one sampled from, whatever flips meanwhile
+            params, version = self.store.wait_version(min_version)
             t0 = time.perf_counter()
-            out = self.scripted_fn(prompts, key)
+            if self.scripted_fn is not None:
+                out = self.scripted_fn(prompts, key)
+            else:
+                if params is None:
+                    raise RuntimeError(f"instance {self.inst_id}: no "
+                                       f"weights published yet")
+                out = self._generate_group_sampler(params, prompts, key)
             self._charge(time.perf_counter() - t0)
             return out, version
+
+    def _generate_group_sampler(self, params, prompts, key) -> RolloutBatch:
+        """The Sampler's call and the batch's read-back to the host (the
+        request's one device->host wait), both on the engine's stream (a
+        no-op context on the CPU): the caller's stream is then the
+        engine's, so neither waits for the trainer's work."""
+        with torch.cuda.stream(self.sampler.stream):
+            out = self.sampler.generate(params, prompts, key)
+            return RolloutBatch(*(None if t is None else t.cpu()
+                                  for t in out))
 
     def _generate_group_paged(self, prompts: List[np.ndarray], key,
                               min_version: Optional[int] = None) -> tuple:

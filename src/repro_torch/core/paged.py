@@ -108,6 +108,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.device import engine_stream, to_device
 from repro_torch.configs.base import ModelConfig, require_engine_support
 from repro_torch.core.cbatch import Completed, SlotScheduler
 from repro_torch.core.graphs import StaticInputs, StepGraph
@@ -117,16 +118,14 @@ from repro_torch.models import forward_hidden, init_caches, init_paged_caches
 from repro_torch.models.attention import INVALID_POS, cache_streams
 from repro_torch.models.layers import lm_head_weight
 from repro_torch.rl.rollout import (Key, RolloutBatch, _sample_token_rows,
-                                    row_seed, sampled_token_logprob)
+                                    _tree_leaves, row_seed,
+                                    sampled_token_logprob)
 from repro_torch.spec import (PromptLookupDraft, commit_block, pack_row_block,
                               truncate_commit, verify_block)
 
 NULL_PAGE = 0
 TRASH_PAGE = 1
 FIRST_PAGE = 2
-# the paged engines' CUDA stream on each card, made at first use
-_STREAMS: Dict[int, torch.cuda.Stream] = {}
-_STREAMS_LOCK = threading.Lock()
 
 
 class PageAllocator:
@@ -244,26 +243,6 @@ class _Block:
     base: int                        # engine step counter at dispatch
     out: tuple                       # (toks (D, B) int64, lps (D, B) f32)
     ready: Optional[torch.cuda.Event]
-
-
-def engine_stream(device: torch.device) -> Optional[torch.cuda.Stream]:
-    """The CUDA stream every paged engine on ``device`` issues its work
-    on: one a card, shared by its engines (PyTorch keeps a cuBLAS
-    workspace per stream for the process's life, so a stream per engine
-    would grow memory with every engine built); None on the CPU."""
-    if device.type != "cuda":
-        return None
-    idx = torch.cuda.current_device() if device.index is None \
-        else device.index
-    with _STREAMS_LOCK:
-        if idx not in _STREAMS:
-            _STREAMS[idx] = torch.cuda.Stream(idx)
-        return _STREAMS[idx]
-
-
-def _tree_leaves(tree: dict):
-    for v in tree.values():
-        yield from (_tree_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def _tree_clone(tree: dict) -> dict:
@@ -577,7 +556,7 @@ class PagedGroupEngine:
         real = ar < length
         positions = torch.where(real, ar, 0)
         segments = torch.where(real, 0, -1).to(torch.int32)
-        tmp = init_caches(cfg, 1, S, device=self.device)
+        tmp = init_caches(cfg, 1, S, device=self.device, ring=False)
         h, tmp = forward_hidden(params, cfg, row, positions=positions,
                                 segments=segments, caches=tmp, cache_offset=0,
                                 capacity_tokens=self.n_prompt_pages
@@ -727,14 +706,6 @@ class PagedGroupEngine:
         capture refuses)."""
         self.caches["layers"]["kv"]["pos_pages"].index_fill_(1, pages,
                                                              INVALID_POS)
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the device, copied from page-locked memory
-        without waiting for the device (on the CPU: the array itself)."""
-        t = torch.from_numpy(a)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
 
     # -- host API -----------------------------------------------------------
 
@@ -961,11 +932,12 @@ class PagedGroupEngine:
         tab = np.zeros((1, self.n_max), np.int32)
         tab[0, : n_pp - jt] = g.prompt_pages
         # fresh pages may hold a previous sequence's stale (pos, kv)
-        self._invalidate(self._to_device(np.asarray(new, np.int64)))
+        self._invalidate(to_device(np.asarray(new, np.int64), self.device))
+        dev = self.device
         g.prompt_logits = self._prefill_suffix(
-            self.params, self.caches, self._to_device(toks),
-            self._to_device(pos), self._to_device(segs),
-            self._to_device(wsl), self._to_device(tab), len(sfx) - 1)
+            self.params, self.caches, to_device(toks, dev),
+            to_device(pos, dev), to_device(segs, dev), to_device(wsl, dev),
+            to_device(tab, dev), len(sfx) - 1)
 
     def _admit_row(self, slot: int, row: _Row) -> None:
         g = row.group
@@ -1001,9 +973,9 @@ class PagedGroupEngine:
                                   np.int64)
                 row_arr[0, : len(g.prompt)] = g.prompt
                 g.prompt_logits = self._prefill_group(
-                    self.params, self.caches, self._to_device(row_arr),
+                    self.params, self.caches, to_device(row_arr, self.device),
                     len(g.prompt),
-                    self._to_device(np.asarray(pages, np.int64)))
+                    to_device(np.asarray(pages, np.int64), self.device))
                 self.prefills += 1
             g.prompt_last = [min((j + 1) * self.page, len(g.prompt)) - 1
                              for j in range(jt, n_pp)]

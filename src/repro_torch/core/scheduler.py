@@ -12,8 +12,9 @@ Modes:
                           asserted at runtime per group.
   * ``async_offpolicy`` — AReaL-like baseline with staleness threshold eta:
                           the producer runs up to eta iterations ahead, so
-                          consumed rollouts may be stale (scripted instances
-                          only: a paged engine needs quiescence at a flip).
+                          consumed rollouts may be stale (the group
+                          Sampler or scripted instances: a paged engine
+                          needs quiescence at a flip).
 
 TPSPD (tokens trained per second per device) is the paper's primary metric.
 

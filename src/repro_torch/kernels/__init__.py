@@ -17,7 +17,11 @@ import threading
 LAUNCHES = {"spa_attention": 0, "spa_attention_bwd": 0,
             "paged_decode_attention": 0, "paged_verify_attention": 0,
             "paged_mla_decode_attention": 0,
-            "paged_mla_verify_attention": 0, "transfer_cast": 0}
+            "paged_mla_verify_attention": 0, "transfer_cast": 0,
+            # the contiguous-cache wrappers, which launch the paged
+            # kernels on a one-page-per-row view
+            "decode_attention": 0, "verify_attention": 0,
+            "mla_decode_attention": 0}
 # the rollout producer threads and the trainer launch kernels concurrently;
 # ``d[k] += 1`` is not atomic across threads, so counts go through the lock
 _lock = threading.Lock()

@@ -2,7 +2,7 @@
 (decode) or S queries per row, each masked by its own position (the
 spec-decode verify block and the radix cache's suffix prefill).
 
-Three CUDA sources serve six wrappers:
+Three CUDA sources serve seven wrappers:
 
   * ``paged_decode_attention`` launches ``csrc/paged_decode_attention.cu``
     (one query per row over the page pool): the Split-L kernel of
@@ -20,6 +20,8 @@ Three CUDA sources serve six wrappers:
     (B, L, Hkv, D) cache and launch the same two kernels through a
     zero-copy view of it as a pool: one page of length L per row, the
     positions as that page's positions, and row b's table [b];
+    ``mla_decode_attention`` does the same for the MLA kernel over a
+    contiguous latent cache (B, L, r) / (B, L, rd);
   * ``paged_mla_decode_attention`` (one query per row) and
     ``paged_mla_verify_attention`` (S per row) launch
     ``csrc/paged_mla_attention.cu``: absorbed MLA attention over the
@@ -290,17 +292,20 @@ def _plan(B, S, H, Hkv, L, device, verify, bf16) -> dict:
 
 
 def _launch_paged(name, symbol, argtypes, q, k_pages, v_pages, pos_pages,
-                  page_table, q_pos, scale, window, S, verify):
-    """Launch a paged kernel on q (B, [S,] H, D) by the plan: its splits
-    and keys per split, f32 scratch for the partials above one split (one
-    allocation: the accumulators, then (m, l) per row), and (verify) its
-    regime."""
+                  page_table, q_pos, scale, window, S, verify, *,
+                  counted: Optional[str] = None):
+    """Launch a paged kernel (source ``name``) on q (B, [S,] H, D) by the
+    plan: its splits and keys per split, f32 scratch for the partials above
+    one split (one allocation: the accumulators, then (m, l) per row), and
+    (verify) its regime. The launch and its plan are recorded under
+    ``counted``, the calling wrapper's name (default ``name``)."""
+    counted = counted or name
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     page, Hkv = k_pages.shape[1], k_pages.shape[2]
     n_max = page_table.shape[1]
     plan = _plan(B, S, H, Hkv, n_max * page, q.device, verify,
                  q.dtype == torch.bfloat16)
-    LAST_PLAN[name] = plan
+    LAST_PLAN[counted] = plan
     splits = plan["splits"]
     out = torch.empty_like(q)
     scratch = _NO_SCRATCH
@@ -318,7 +323,7 @@ def _launch_paged(name, symbol, argtypes, q, k_pages, v_pages, pos_pages,
            build.ptr(out), *scratch, *dims, page, n_max, _DTYPES[q.dtype],
            window or 0, splits, plan["keys_per_split"], *regime,
            D ** -0.5 if scale is None else scale, build.stream(q))
-    count_launch(name)
+    count_launch(counted)
     return out
 
 
@@ -430,24 +435,37 @@ def decode_attention(q, k, v, kv_pos, q_pos, *, scale: Optional[float] = None,
                      window: Optional[int] = None):
     """q: (B, H, D) one token per row; k/v: (B, L, Hkv, D); kv_pos: (B, L)
     int32; q_pos: (B,) int32. Returns (B, H, D). CUDA tensors launch the
-    paged decode kernel on the cache viewed as a pool."""
-    if not _device_route("decode_attention", q):
+    paged decode kernel on the cache viewed as a pool (counted as
+    ``decode_attention``). A ring cache's slots need not be in position
+    order: the kernel's split combine is order-free."""
+    name = "decode_attention"
+    if not _device_route(name, q):
         return decode_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
                                       window=window)
-    return paged_decode_attention(q, *_as_pool(k, v, kv_pos), q_pos,
-                                  scale=scale, window=window)
+    pool = _as_pool(k, v, kv_pos)
+    _check_cuda(name, q, *pool, q_pos, window)
+    return _launch_paged("paged_decode_attention",
+                         "paged_decode_attention_launch", _DECODE_ARGTYPES,
+                         q, *pool, q_pos, scale, window, 1, verify=False,
+                         counted=name)
 
 
 def verify_attention(q, k, v, kv_pos, q_pos, *, scale: Optional[float] = None,
                      window: Optional[int] = None):
     """q: (B, S, H, D); k/v: (B, L, Hkv, D); kv_pos: (B, L) int32; q_pos:
     (B, S) int32. Returns (B, S, H, D). CUDA tensors launch the paged
-    verify kernel on the cache viewed as a pool."""
-    if not _device_route("verify_attention", q):
+    verify kernel on the cache viewed as a pool (counted as
+    ``verify_attention``)."""
+    name = "verify_attention"
+    if not _device_route(name, q):
         return verify_attention_plain(q, k, v, kv_pos, q_pos, scale=scale,
                                       window=window)
-    return paged_verify_attention(q, *_as_pool(k, v, kv_pos), q_pos,
-                                  scale=scale, window=window)
+    pool = _as_pool(k, v, kv_pos)
+    _check_cuda(name, q, *pool, q_pos, window)
+    return _launch_paged("paged_verify_attention",
+                         "paged_verify_attention_launch", _VERIFY_ARGTYPES,
+                         q, *pool, q_pos, scale, window, q.shape[1],
+                         verify=True, counted=name)
 
 
 def _check_mla_cuda(name, q, ckv_pages, kr_pages, pos_pages, page_table,
@@ -578,3 +596,30 @@ def paged_mla_verify_attention(q, ckv_pages, kr_pages, pos_pages, page_table,
                          f"(B, S)")
     return _launch_mla(name, q, ckv_pages, kr_pages, pos_pages, page_table,
                        q_pos, scale, window, q.shape[1])
+
+
+def mla_decode_attention_plain(q, ckv, kr, kv_pos, q_pos, *, scale: float,
+                               window: Optional[int] = None):
+    """Plain version: the paged plain version on the one-page-per-row
+    view of the contiguous latent cache."""
+    return paged_mla_decode_attention_plain(q, *_as_pool(ckv, kr, kv_pos),
+                                            q_pos, scale=scale, window=window)
+
+
+def mla_decode_attention(q, ckv, kr, kv_pos, q_pos, *, scale: float,
+                         window: Optional[int] = None):
+    """Absorbed MLA decode over a contiguous latent cache (the group
+    Sampler's dense or ring cache). q: (B, H, r + rd); ckv: (B, L, r); kr:
+    (B, L, rd); kv_pos: (B, L) int32; q_pos: (B,) int32. Returns (B, H,
+    r). CUDA tensors launch the paged MLA kernel on the cache viewed as a
+    pool of B pages of length L, row b's table [b] (counted as
+    ``mla_decode_attention``); CPU tensors run the paged plain version on
+    the same view."""
+    name = "mla_decode_attention"
+    if not _device_route(name, q):
+        return mla_decode_attention_plain(q, ckv, kr, kv_pos, q_pos,
+                                          scale=scale, window=window)
+    if q.dim() != 3 or q_pos.dim() != 1:
+        raise ValueError(f"{name}: q must be (B, H, r + rd) and q_pos (B,)")
+    return _launch_mla(name, q, *_as_pool(ckv, kr, kv_pos), q_pos, scale,
+                       window, 1)

@@ -1,5 +1,6 @@
-"""Request-driven serving tier of the port: the paged engine behind a
-request driver, runnable standalone.
+"""Serving tier of the port: the paged engine behind a request driver,
+and the group-at-a-time Sampler serving one fixed batch
+(``serve_batch``, ``--engine fixed``), runnable standalone.
 
 The ``RequestDriver`` submits requests as they ARRIVE (Poisson or an
 explicit trace), steps the engine, and records every streamed token's
@@ -16,6 +17,9 @@ the 2-layer f32 variant on the CPU):
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
         --num-requests 8 --max-new 24 --slots 4 [--rate 4.0] \\
         [--spec --spec-k 4] [--prefix-cache] [--shared-system 8]
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine fixed \\
+        --num-requests 8 --max-new 24
+(the paged engine is the port's default; the JAX package's is ``fixed``)
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.core.paged import FIRST_PAGE, PagedGroupEngine
 from repro_torch.data.tasks import ArithmeticTask
 from repro_torch.data.tokenizer import Tokenizer
 from repro_torch.models import init
+from repro_torch.rl.rollout import Sampler
 
 
 @dataclasses.dataclass
@@ -154,6 +159,35 @@ class RequestDriver:
                 raise RuntimeError(f"streaming delivery diverged from the "
                                    f"final response for request {r.rid}")
         return reqs
+
+
+def _settle_batch(out, t0: float):
+    """Boundary settle for one served batch: read the response lengths
+    back (which waits for the batch) and the token count, one call frame
+    below the serving entry point, so the entry point itself reads
+    nothing back."""
+    lens = out.response_len.cpu()      # waits for the batch
+    wall = time.time() - t0
+    # repro: allow(host-sync): once per served batch, for the stats dict
+    return wall, int(lens.sum())
+
+
+def serve_batch(cfg, prompts, *, max_prompt_len: int, max_new: int,
+                temperature: float = 0.7, seed: int = 0, device="cuda",
+                params=None):
+    """Serve a batch of requests in one call of the group-at-a-time
+    Sampler (no logprob capture: serving has no trainer to read them),
+    sampled under the key ``seed + 1``; returns (the RolloutBatch, on the
+    device, and stats: wall seconds, generated tokens, tok/s)."""
+    sampler = Sampler(cfg, max_prompt_len, max_new, temperature=temperature,
+                      capture_logprobs=False, device=device)
+    if params is None:
+        params = init(cfg, seed=seed, device=sampler.device)
+    t0 = time.time()
+    out = sampler.generate(params, prompts, seed + 1)
+    wall, toks = _settle_batch(out, t0)
+    return out, {"wall_s": wall, "generated_tokens": toks,
+                 "tok_per_s": toks / wall}
 
 
 def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
@@ -310,9 +344,13 @@ def serve_requests(cfg, prompts, *, max_prompt_len: int, max_new: int,
 
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(
-        description="Serve requests through the port's paged engine.")
+        description="Serve requests through the port's paged engine, or "
+                    "as one fixed batch through the group Sampler.")
     ap.add_argument("--arch", default="llama3.2-3b", choices=ARCH_IDS)
-    ap.add_argument("--engine", default="paged", choices=["paged"])
+    ap.add_argument("--engine", default="paged", choices=["paged", "fixed"],
+                    help="paged: continuous batching over the page pool "
+                         "(the port's default); fixed: every request in "
+                         "one lock-step batch of the group Sampler")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the 2-layer f32 variant of --arch instead of "
                          "its full width")
@@ -350,6 +388,11 @@ def main(argv: Optional[list] = None) -> None:
         cfg = reduced_config(cfg)
     tok = Tokenizer(cfg.vocab_size)
     spec_k = args.spec_k if args.spec else 0
+    if args.engine == "fixed" and (args.spec or args.prefix_cache
+                                   or args.rate or args.shared_system):
+        raise SystemExit("--spec, --prefix-cache, --rate and "
+                         "--shared-system ride the paged engine; drop "
+                         "--engine fixed")
     plane = dict(spec_k=spec_k)
     if args.shared_system:
         # the radix tree serves every request's system pages from cache
@@ -391,6 +434,19 @@ def main(argv: Optional[list] = None) -> None:
                              if spec_k else "")
                  + (f", prefix hit rate {st['prefix_hit_rate']:.2f}"
                     if args.prefix_cache else ""))
+
+    if args.engine == "fixed":
+        out, stats = serve_batch(
+            cfg, prompts, max_prompt_len=args.max_prompt_len,
+            max_new=args.max_new, temperature=args.temperature,
+            seed=args.seed, device=args.device)
+        print(f"{cfg.name} on {args.device} (fixed batch of "
+              f"{len(prompts)}): {stats['generated_tokens']} tokens in "
+              f"{stats['wall_s']:.2f}s ({stats['tok_per_s']:.1f} tok/s)")
+        resp, lens = out.response_ids.tolist(), out.response_len.tolist()
+        for i in range(min(4, len(prompts))):
+            print(f"  req {i}: {tok.decode(resp[i][: lens[i]])!r}")
+        return
 
     if args.rate > 0:
         reqs, m, st = serve_requests(cfg, prompts, rate=args.rate, **kw)

@@ -1,7 +1,7 @@
 """End-to-end GRPO training entry point of the port: one periodic-async
 pipeline (paper Figure 1), the counterpart of ``src/repro/launch/train.py``.
 
-    PromptLoader -> TemporaryDataGenerator -> InferencePool (paged engines)
+    PromptLoader -> TemporaryDataGenerator -> InferencePool (rollout engines)
                           |  RolloutQueue  |
     PeriodicAsyncScheduler (consumer: tri-model GRPO + grad accumulation)
                           |  WeightTransferService (bucketed, versioned)
@@ -9,7 +9,9 @@ pipeline (paper Figure 1), the counterpart of ``src/repro/launch/train.py``.
 Usage (full-width llama3.2-3b cut to 12 layers, f32, on the GPU;
 ``--device cpu --reduced`` for the 2-layer variant on the CPU;
 ``--arch deepseek-v2-lite-16b --layers 3`` trains the MoE model, its
-dense prelude and 2 MoE layers, on one card):
+dense prelude and 2 MoE layers, on one card; ``--rollout-engine group``
+draws the rollouts from the group-at-a-time Sampler, the only engine of
+``--mode async_offpolicy``, the off-policy baseline):
     PYTHONPATH=src python -m repro_torch.launch.train --layers 12 \\
         --mode async --iterations 3 --batch-prompts 4 --group-size 8 \\
         --spa --wire-dtype bfloat16
@@ -36,6 +38,7 @@ from repro_torch.data.tasks import ArithmeticTask
 from repro_torch.data.tokenizer import Tokenizer
 from repro_torch.models import init
 from repro_torch.rl.reward import RuleBasedReward
+from repro_torch.rl.rollout import Sampler
 from repro_torch.transfer.service import WeightTransferService
 
 
@@ -43,10 +46,14 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
                    scripted_fn=None, params=None, device="cuda"):
     """Returns (scheduler, components dict). With ``scripted_fn`` the
     inference instances return scripted rollouts; otherwise each runs the
-    paged engine. ``params`` (a tree in the model's layout, e.g. converted
-    from the JAX package) replaces the random weights made from ``seed``.
-    Runs on ``device`` (CUDA unless the caller asks for the CPU); refuses
-    a config the port cannot train (``engine_support``'s train plane)."""
+    rollout engine ``rl.rollout_engine``: the paged engine (one an
+    instance) or the group-at-a-time Sampler (one, shared: it keeps no
+    state between calls). ``params`` (a tree in the model's layout, e.g.
+    converted from the JAX package) replaces the random weights made from
+    ``seed``. Runs on ``device`` (CUDA unless the caller asks for the
+    CPU); refuses a config the port cannot train (``engine_support``'s
+    train plane) or roll out on the chosen engine, and the off-policy
+    baseline on the paged engine, which needs quiescence at a flip."""
     # repro: allow(support-matrix): the train plane is declared in the port's matrix (src/repro_torch/configs/base.py TRAIN_PLANE); the checker reads the JAX package's
     require_engine_support(cfg, "train")
     dev = _device.resolve(device)
@@ -57,18 +64,30 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
         params = init(cfg, seed=seed, device=dev)
     tri = TriModelState.create(params)
 
+    sampler = None
+    if scripted_fn is None and rl.rollout_engine == "group":
+        if rl.spec_decode:
+            require_engine_support(cfg, "spec", rollout_engine="group")
+        if rl.prefix_cache:
+            require_engine_support(cfg, "prefix", rollout_engine="group")
+        if rl.decode_drain_interval != 1:
+            raise ValueError("decode_drain_interval is the paged engine's "
+                             "decode block; the group Sampler decodes one "
+                             "step a forward")
+        sampler = Sampler(cfg, rl.max_prompt_len, rl.max_response_len,
+                          temperature=rl.temperature, top_p=rl.top_p,
+                          capture_logprobs=rl.capture_logprobs, device=dev)
+    elif scripted_fn is None and rl.rollout_engine != "paged":
+        raise KeyError(f"unknown rollout engine {rl.rollout_engine!r}")
+
     def paged_engine() -> Optional[PagedGroupEngine]:
-        if scripted_fn is not None:
+        if scripted_fn is not None or sampler is not None:
             return None
-        if rl.rollout_engine == "group":
-            require_engine_support(cfg, "group")     # raises: not ported
-        elif rl.rollout_engine != "paged":
-            raise KeyError(f"unknown rollout engine {rl.rollout_engine!r}")
         if rl.mode == "async_offpolicy":
             raise ValueError(
                 "rollout_engine='paged' needs a quiescent engine at weight "
-                "sync; the off-policy baseline syncs mid-flight — run it "
-                "with scripted instances")
+                "sync; the off-policy baseline syncs mid-flight — use the "
+                "group engine")
         return PagedGroupEngine(
             cfg, num_slots=rl.cbatch_slots, page_size=rl.kv_page_size,
             num_pages=rl.kv_pages, max_prompt_len=rl.max_prompt_len,
@@ -79,7 +98,7 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
             prefix_cache=rl.prefix_cache,
             drain_interval=rl.decode_drain_interval, device=dev)
 
-    instances = [InferenceInstance(i, cfg, scripted_fn=scripted_fn,
+    instances = [InferenceInstance(i, cfg, sampler, scripted_fn=scripted_fn,
                                    paged_engine=paged_engine())
                  for i in range(rl.num_inference_instances)]
     pool = InferencePool(instances)
@@ -94,7 +113,8 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
                                    device=dev, transfer=transfer)
     return sched, {"tokenizer": tok, "task": task, "loader": loader,
                    "pool": pool, "queue": queue, "generator": gen,
-                   "tri": tri, "transfer": transfer, "device": dev}
+                   "tri": tri, "transfer": transfer, "device": dev,
+                   "sampler": sampler}
 
 
 def main(argv=None) -> None:
@@ -105,7 +125,18 @@ def main(argv=None) -> None:
                     help="2-layer d_model 256 variant (CPU-sized)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers (widths stay)")
-    ap.add_argument("--mode", default="async", choices=["sync", "async"])
+    ap.add_argument("--mode", default="async",
+                    choices=["sync", "async", "async_offpolicy"],
+                    help="async_offpolicy: the off-policy baseline, the "
+                         "producer up to --staleness-eta iterations ahead "
+                         "(needs --rollout-engine group)")
+    ap.add_argument("--staleness-eta", type=int, default=1)
+    ap.add_argument("--rollout-engine", default="paged",
+                    choices=["paged", "group"],
+                    help="rollout engine: token-level paged continuous "
+                         "batching (the port's default) or the "
+                         "group-at-a-time Sampler over a dense cache (the "
+                         "JAX package's default)")
     ap.add_argument("--iterations", type=int, default=3)
     ap.add_argument("--batch-prompts", type=int, default=4)
     ap.add_argument("--group-size", type=int, default=8)
@@ -140,7 +171,9 @@ def main(argv=None) -> None:
                               compute_dtype="float32",
                               num_layers=args.layers or cfg.num_layers)
     rl = RLConfig(
-        mode=args.mode, batch_prompts=args.batch_prompts,
+        mode=args.mode, staleness_eta=args.staleness_eta,
+        rollout_engine=args.rollout_engine,
+        batch_prompts=args.batch_prompts,
         group_size=args.group_size, num_inference_instances=1,
         max_prompt_len=args.max_prompt_len,
         max_response_len=args.max_response_len,
@@ -154,7 +187,8 @@ def main(argv=None) -> None:
     wall = time.time() - t0
     total = sum(s.trained_tokens for s in history)
     print(f"{cfg.name} ({cfg.num_layers} layers, float32) on "
-          f"{args.device} mode={args.mode} spa={args.spa} "
+          f"{args.device} mode={args.mode} "
+          f"engine={args.rollout_engine} spa={args.spa} "
           f"spec={args.spec} prefix_cache={args.prefix_cache} "
           f"drain_interval={args.drain_interval}: "
           f"{args.iterations} iterations, {total} tokens, {wall:.1f}s wall, "

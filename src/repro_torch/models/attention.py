@@ -5,10 +5,12 @@ causal ``kv_pos <= q_pos``, shared prompt ``kv_seg == 0 or kv_seg ==
 q_seg``; padding uses seg -1 and invalid cache slots pos ``INVALID_POS``.
 
 Which kernel runs is decided by the branch alone, never by a config flag:
-a prefill or training forward (dense path) calls the SPA wrapper; against
-the paged pool, one token per row calls the paged-decode wrapper and S > 1
-tokens per row (the spec verify block, the radix cache's suffix prefill)
-the paged-verify wrapper. Each wrapper launches its CUDA kernel for CUDA
+a prefill or training forward (dense path) calls the SPA wrapper; one
+token per row against a dense (or ring) cache, the group Sampler's decode
+step, calls the contiguous decode wrapper; against the paged pool, one
+token per row calls the paged-decode wrapper and S > 1 tokens per row (the
+spec verify block, the radix cache's suffix prefill) the paged-verify
+wrapper. Each wrapper launches its CUDA kernel for CUDA
 tensors and runs its plain version for CPU tensors.
 
 MLA (DeepSeek-V2) caches one latent row per token, ``(ckv, kr)``, instead
@@ -16,7 +18,9 @@ of per-head K/V. Against the paged pool it attends in the latent space
 (absorbed: w_uk folded into q, w_uv applied to the latent output) through
 the paged MLA wrappers, S == 1 through ``paged_mla_decode_attention`` and
 S > 1 (the spec verify block, the radix cache's suffix prefill) through
-``paged_mla_verify_attention``. Prefill and training expand per-head K/V
+``paged_mla_verify_attention``; against a dense (or ring) latent cache,
+one token per row through ``mla_decode_attention``, the same kernel on a
+one-page-per-row view. Prefill and training expand per-head K/V
 from the latent and run plain PyTorch attention, as the JAX package does
 (``_mla_expanded``); training differentiates it with autograd.
 
@@ -31,7 +35,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention import (paged_decode_attention,
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  mla_decode_attention,
+                                                  paged_decode_attention,
                                                   paged_mla_decode_attention,
                                                   paged_mla_verify_attention,
                                                   paged_verify_attention)
@@ -62,13 +68,24 @@ def is_paged_cache(cache: dict) -> bool:
 
 
 class DenseCacheBackend:
-    """Contiguous per-row cache of ``length`` slots (no ring buffer). The
-    paged engine runs each prompt's prefill over one of these and splices
-    its K/V into the page pool."""
+    """Contiguous per-row cache of ``length`` slots; the sliding-window
+    RING buffer when ``cfg.sliding_window`` is set (write index ``offset
+    % length``; a prefill of S > length tokens ring-writes its trailing
+    window, token i in slot ``i % length``), as the JAX backend. The group
+    Sampler decodes over one; the paged engine runs each prompt's prefill
+    over one (never a ring) and splices its K/V into the page pool.
+
+    A padding token (segment -1) is stored at pos ``INVALID_POS``: the
+    decode kernels mask by position alone, where the JAX package masks
+    padding by segment (``allow_mask``). For the segment-0 queries that
+    decode against the cache the two masks agree. Segments are stored as
+    given, and a prefill attends before the write, with the positions it
+    was given."""
 
     def __init__(self, cfg: ModelConfig, length: int):
         self.cfg = cfg
         self.L = length
+        self.ring = cfg.sliding_window is not None
 
     def init(self, batch: int, dtype: torch.dtype, device) -> dict:
         state = {n: torch.zeros((batch, self.L) + shp, dtype=dtype,
@@ -80,23 +97,47 @@ class DenseCacheBackend:
                                   device=device)
         return state
 
-    def write_prefill(self, state: dict, vals: tuple, positions,
-                      segments) -> dict:
-        """Write S <= L prompt tokens at offset 0, in place."""
-        S = positions.shape[1]
-        if S > self.L:
-            raise ValueError(f"prefill of {S} tokens exceeds the {self.L}-slot "
-                             f"cache")
+    def _store(self, state: dict, start: int, vals: tuple, positions,
+               segments) -> dict:
+        stop = start + positions.shape[1]
         for (n, _), val in zip(cache_streams(self.cfg), vals):
-            state[n][:, :S] = val
-        state["pos"][:, :S] = positions
-        state["seg"][:, :S] = segments
+            state[n][:, start:stop] = val
+        state["pos"][:, start:stop] = torch.where(segments < 0, INVALID_POS,
+                                                  positions)
+        state["seg"][:, start:stop] = segments
         return state
 
-    def read(self, state: dict) -> tuple:
-        """-> (*streams, kv_pos, kv_seg), each full-length."""
-        return tuple(state[n] for n, _ in cache_streams(self.cfg)) \
-            + (state["pos"], state["seg"])
+    def write_decode(self, state: dict, vals: tuple, positions, segments,
+                     cache_offset: int) -> dict:
+        """In-place write of S tokens per row (vals (B, S, *shp)) at the
+        scalar offset of a lock-step engine: row b's token j lands in slot
+        ``cache_offset + j`` (mod L on a ring). The per-row (B,) offsets of
+        the slot engines are not ported."""
+        if not isinstance(cache_offset, int):
+            raise TypeError("a dense cache takes one scalar (int) write "
+                            "offset for every row")
+        S = positions.shape[1]
+        idx = cache_offset % self.L if self.ring else cache_offset
+        if idx + S > self.L:
+            raise ValueError(f"write of {S} tokens at slot {idx} overruns "
+                             f"the {self.L}-slot cache")
+        return self._store(state, idx, vals, positions, segments)
+
+    def write_prefill(self, state: dict, vals: tuple, positions,
+                      segments) -> dict:
+        """Prompt prefill, in place. S <= L writes at offset 0; S > L
+        (ring caches only) ring-writes the trailing window."""
+        S = positions.shape[1]
+        if S > self.L:
+            if not self.ring:
+                raise ValueError(f"prefill of {S} tokens exceeds the "
+                                 f"{self.L}-slot cache")
+
+            def ring(a):
+                return torch.roll(a[:, -self.L:], S % self.L, dims=1)
+            vals = tuple(ring(v) for v in vals)
+            positions, segments = ring(positions), ring(segments)
+        return self._store(state, 0, vals, positions, segments)
 
 
 class PagedCacheBackend:
@@ -152,28 +193,42 @@ def _paged_gqa_decode(cfg: ModelConfig, q, k, v, positions, cache,
     return out, cache
 
 
-def _dense_prefill(cfg: ModelConfig, vals: tuple, positions, segments, cache,
-                   cache_offset):
-    """The context a prefill attends over: its own tokens, or (with a dense
-    cache) the cache after writing them from offset 0. Returns (*streams,
-    kv_pos, kv_seg)."""
+def _dense_prefill(cfg: ModelConfig, vals: tuple, positions, segments,
+                   cache, cache_offset) -> None:
+    """A prefill (S > 1) into a dense cache, filled from offset 0. The
+    prefill attends over its own fresh tokens, with the positions and
+    segments it was given: the JAX package attends over the cache after
+    the write, whose other slots (pos 2^30) no query sees, so the masks
+    are the same; a windowed prefill of more than L tokens attends over
+    all of them and keeps the trailing window (the JAX S > L branch)."""
     if cache is None:
-        return (*vals, positions, segments)
+        return
     if not (cache_offset is None or (isinstance(cache_offset, int)
                                      and cache_offset == 0)):
         raise ValueError("a dense cache is filled from offset 0 (prefill); "
-                         "decode runs on the paged pool")
-    be = DenseCacheBackend(cfg, cache["pos"].shape[1])
-    return be.read(be.write_prefill(cache, vals, positions, segments))
+                         "a multi-token write at another offset is the "
+                         "spec verify block, not ported to a dense cache")
+    DenseCacheBackend(cfg, cache["pos"].shape[1]).write_prefill(
+        cache, vals, positions, segments)
+
+
+def _dense_decode_write(cfg: ModelConfig, vals: tuple, positions, segments,
+                        cache, cache_offset) -> None:
+    """One token per row into a dense (or ring) cache at the scalar
+    offset (a prompt of one token is written at 0, as in JAX)."""
+    DenseCacheBackend(cfg, cache["pos"].shape[1]).write_decode(
+        cache, vals, positions, segments,
+        0 if cache_offset is None else cache_offset)
 
 
 def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
                   cache: Optional[dict] = None, cache_offset=None,
                   page_table=None):
     """x: (B, S, d). Prefill/training when ``cache`` is None or a dense
-    cache filled from offset 0; S tokens per row against the paged pool
-    when ``cache`` is one (with (B,) or (B, S) flat write slots and a page
-    table).
+    cache filled from offset 0 (S > 1); one token per row against a dense
+    (or ring) cache at a scalar offset (the Sampler's decode step); S
+    tokens per row against the paged pool when ``cache`` is one (with (B,)
+    or (B, S) flat write slots and a page table).
 
     Returns (out, cache)."""
     B, S, _ = x.shape
@@ -187,11 +242,19 @@ def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
     if cache is not None and is_paged_cache(cache):
         out, cache = _paged_gqa_decode(cfg, q, k, v, positions, cache,
                                        cache_offset, page_table)
+    elif cache is not None and S == 1:
+        # dense decode: write, then the contiguous decode kernel over the
+        # cache (JAX: chunked_attention's single-query path)
+        _dense_decode_write(cfg, (k, v), positions, segments, cache,
+                            cache_offset)
+        out = decode_attention(q[:, 0], cache["k"], cache["v"],
+                               cache["pos"], positions[:, 0],
+                               window=cfg.sliding_window)[:, None]
     else:
-        kk, vv, kp, ks = _dense_prefill(cfg, (k, v), positions, segments,
-                                        cache, cache_offset)
-        out = spa_attention(q, kk, vv, positions, kp, segments, ks,
-                            window=cfg.sliding_window,
+        _dense_prefill(cfg, (k, v), positions, segments, cache,
+                       cache_offset)
+        out = spa_attention(q, k, v, positions, positions, segments,
+                            segments, window=cfg.sliding_window,
                             chunk_size=cfg.attn_chunk_size)
     out = out.reshape(B, S, H * hd) @ params["wo"]
     return out, cache
@@ -248,6 +311,20 @@ def _paged_mla_decode(params, cfg: ModelConfig, q_nope, q_rope, ckv, kr,
     return o_lat, cache
 
 
+def _dense_mla_decode(params, cfg: ModelConfig, q_nope, q_rope, ckv, kr,
+                      positions, segments, cache, cache_offset, scale):
+    """Absorbed MLA decode of one token per row against a dense (or ring)
+    latent cache: write its (ckv, kr) row, then attend in the latent space
+    through the contiguous MLA wrapper (JAX: chunked_attention over the
+    cache read). Returns o_lat (B, 1, H, r)."""
+    _dense_decode_write(cfg, (ckv, kr), positions, segments, cache,
+                        cache_offset)
+    q_cat = _absorbed_q(params, cfg, q_nope, q_rope)
+    return mla_decode_attention(q_cat[:, 0], cache["ckv"], cache["kr"],
+                                cache["pos"], positions[:, 0], scale=scale,
+                                window=cfg.sliding_window)[:, None]
+
+
 def _mla_expanded(params, cfg: ModelConfig, q_nope, q_rope, ckv_all, kr_all,
                   positions, kv_pos, segments, kv_seg, scale):
     """Prefill attention: per-head K/V expanded from the latent, then
@@ -276,9 +353,11 @@ def mla_attention(params, cfg: ModelConfig, x, positions, segments, *,
     flat write slots and a page table): the absorbed path through the
     paged MLA kernels for S tokens per row (a decode step, the spec verify
     block, a radix suffix prefill attending through cached latent pages),
-    so the pool stores only ckv + kr per token (the MLA memory win).
-    Otherwise (no cache, or a dense cache filled from offset 0): the
-    expanded path of prefill and training.
+    so the pool stores only ckv + kr per token (the MLA memory win); one
+    token per row against a dense (or ring) latent cache: the same
+    absorbed attention through the contiguous MLA wrapper (the Sampler's
+    decode step). Otherwise (no cache, or a dense cache filled from offset
+    0): the expanded path of prefill and training.
 
     The softmax scale is (nd + rd)^-0.5 and is passed to the kernels
     explicitly: their default, D^-0.5 with D = r + rd, is not MLA's.
@@ -287,18 +366,22 @@ def mla_attention(params, cfg: ModelConfig, x, positions, segments, *,
     H, vd, r = cfg.num_heads, cfg.v_head_dim, cfg.kv_lora_rank
     q_nope, q_rope, ckv, kr = _mla_qckv(params, cfg, x, positions)
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    if cache is not None and is_paged_cache(cache):
-        o_lat, cache = _paged_mla_decode(params, cfg, q_nope, q_rope, ckv,
-                                         kr, positions, cache, cache_offset,
-                                         page_table, scale)
+    if cache is not None and (S == 1 or is_paged_cache(cache)):
+        if is_paged_cache(cache):
+            o_lat, cache = _paged_mla_decode(params, cfg, q_nope, q_rope,
+                                             ckv, kr, positions, cache,
+                                             cache_offset, page_table, scale)
+        else:
+            o_lat = _dense_mla_decode(params, cfg, q_nope, q_rope, ckv, kr,
+                                      positions, segments, cache,
+                                      cache_offset, scale)
         out = torch.einsum("bshr,rhv->bshv", o_lat,
                            params["w_uv"].reshape(r, H, vd))
     else:
-        ckv_all, kr_all, kp, ks = _dense_prefill(cfg, (ckv, kr), positions,
-                                                 segments, cache,
-                                                 cache_offset)
-        out = _mla_expanded(params, cfg, q_nope, q_rope, ckv_all, kr_all,
-                            positions, kp, segments, ks, scale)
+        _dense_prefill(cfg, (ckv, kr), positions, segments, cache,
+                       cache_offset)
+        out = _mla_expanded(params, cfg, q_nope, q_rope, ckv, kr,
+                            positions, positions, segments, segments, scale)
     out = out.reshape(B, S, H * vd) @ params["wo"]
     return out, cache
 

@@ -221,12 +221,19 @@ def _stacked(cfg: ModelConfig, one: dict) -> dict:
                               .contiguous() for k, v in one.items()}}}
 
 
-def init_caches(cfg: ModelConfig, batch: int, length: int, *, device
-                ) -> dict:
-    """Dense per-layer caches of ``length`` slots, stacked over layers (the
-    paged engine's prompt prefill runs over one and splices it into the
-    pool; there is no ring buffer in the port)."""
-    one = DenseCacheBackend(cfg, length).init(
+def init_caches(cfg: ModelConfig, batch: int, length: int, *, device,
+                ring: bool = True, ring_slack: int = 0) -> dict:
+    """Dense per-layer decode caches, stacked over layers. A
+    sliding-window config gets the ring buffer sized to its window,
+    ``min(length, window + ring_slack)`` slots (``ring=True``, the
+    Sampler's); ``ring=False`` gives ``length`` slots whatever the window
+    (the paged engine's prompt prefill: every prompt token's K/V is
+    spliced into the pool; the window mask still applies in attention).
+    ``ring_slack`` widens the ring for a multi-token verify block (the
+    spec plane, not ported to a dense cache: 0 here), as in JAX."""
+    kv_len = (min(length, cfg.sliding_window + ring_slack)
+              if cfg.sliding_window and ring else length)
+    one = DenseCacheBackend(cfg, kv_len).init(
         batch, dtype_of(cfg.compute_dtype), device)
     return _stacked(cfg, one)
 

@@ -1,4 +1,5 @@
-"""Token sampling for the port's decode engines.
+"""Token sampling for the port's decode engines, and the group-at-a-time
+``Sampler`` engine.
 
 Greedy decode is ``argmax``. Sampled decode is Gumbel-max: ``argmax(
 filtered_logits + g)`` with ``g = -log(-log(u))``, ``u`` uniform in (0, 1).
@@ -26,6 +27,13 @@ from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from repro_torch import device as _device
+from repro_torch.configs.base import require_engine_support
+from repro_torch.data.tokenizer import Tokenizer
+from repro_torch.device import engine_stream, to_device
+from repro_torch.models import forward_hidden, init_caches
+from repro_torch.models.layers import lm_head_weight
 
 Key = Union[int, Sequence[int]]
 
@@ -132,3 +140,142 @@ def _sample_token_rows(logits: torch.Tensor, seeds: Optional[torch.Tensor],
     logits = _filter_logits(logits, temperature, top_p)
     noise = gumbel_noise(seeds, counter, DECODE_LANE, logits.shape[-1])
     return torch.argmax(logits + noise, dim=-1)
+
+
+def _tree_leaves(tree: dict):
+    for v in tree.values():
+        yield from (_tree_leaves(v) if isinstance(v, dict) else (v,))
+
+
+class Sampler:
+    """The group-at-a-time rollout engine (the port of the JAX
+    ``Sampler``): ``generate`` turns B prompts, left-padded to
+    ``max_prompt_len``, into B responses of ``max_new_tokens`` in lock
+    step. One prefill of the B rows over a dense cache (a ring of the
+    window's length under a sliding window), then exactly
+    ``max_new_tokens`` steps: every row runs every step, a finished row
+    emits PAD, and the loop never exits early. Each step samples from the
+    logits in hand; every step but the last then runs one decode forward
+    (one token a row through the contiguous decode kernel) for the next
+    step's logits. The JAX Sampler also runs a last forward, whose logits
+    nothing reads; the port leaves it out, so a call runs
+    ``max_new_tokens - 1`` decode forwards.
+
+    Draws are the port's counter hash: row b of a call keyed ``key``
+    samples its t-th token with ``row_seed(key, b)`` at counter t (lane
+    ``DECODE_LANE``), as the paged engine samples row b of a group keyed
+    ``key``; so with the same key, dtype and weights a row's sampled
+    tokens are the paged engine's (MoE off: a MoE layer's capacity
+    follows each forward's token count, which the two engines size
+    differently). Captured logprobs are under the unfiltered
+    distribution; ``response_len`` is the index of the first EOS plus one,
+    else ``max_new_tokens``.
+
+    Runs on ``device`` (CUDA unless the caller asks for the CPU); on the
+    card every kernel runs on the rollout engines' stream
+    (``device.engine_stream``): it waits for the caller's stream before
+    it reads the weights, keeps every tree leaf and input it reads from
+    reuse until its kernels have run (``record_stream``: a store may drop
+    its last reference to a tree mid-call, at an off-policy flip), and
+    the caller's stream waits for the batch before it reads it. The
+    T-step loop reads nothing back to the host; ``generate`` returns
+    device tensors."""
+
+    def __init__(self, cfg, max_prompt_len: int, max_new_tokens: int,
+                 temperature: float = 1.0, top_p: float = 1.0,
+                 eos_id: int = Tokenizer.EOS, pad_id: int = Tokenizer.PAD,
+                 capture_logprobs: bool = True, *, device="cuda"):
+        require_engine_support(cfg, "group")
+        self.cfg = cfg
+        self.max_prompt_len = max_prompt_len
+        self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
+        self.top_p = top_p
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.capture_logprobs = capture_logprobs
+        self.device = _device.resolve(device)
+        self.stream = engine_stream(self.device)
+
+    # -- host-side helpers ---------------------------------------------------
+    def pad_prompts(self, prompts: list) -> tuple:
+        """list of 1-D int arrays -> (B, Lp) left-padded int64 ids + (B,)
+        lengths, host arrays: each prompt keeps its last ``Lp`` tokens."""
+        Lp = self.max_prompt_len
+        out = np.full((len(prompts), Lp), self.pad_id, np.int64)
+        lens = np.zeros((len(prompts),), np.int64)
+        for i, p in enumerate(prompts):
+            p = np.asarray(p, np.int64)[-Lp:]
+            if len(p) == 0:
+                raise ValueError("empty prompt")
+            out[i, Lp - len(p):] = p
+            lens[i] = len(p)
+        return out, lens
+
+    def generate(self, params, prompts: list, key: Key) -> RolloutBatch:
+        toks, lens = self.pad_prompts(prompts)
+        seeds = np.asarray([row_seed(key, b) for b in range(len(prompts))],
+                           np.int64)
+        if self.stream is None:
+            return self._generate(params, toks, lens, seeds)
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)   # the weights were written there
+        with torch.cuda.stream(self.stream):
+            out = self._generate(params, toks, lens, seeds)
+        for leaf in _tree_leaves(params):
+            leaf.record_stream(self.stream)
+        caller.wait_stream(self.stream)
+        for t in out:
+            if t is not None:
+                t.record_stream(caller)
+        return out
+
+    # -- device core ---------------------------------------------------------
+    def _generate(self, params, toks, lens, seeds) -> RolloutBatch:
+        cfg = self.cfg
+        B, Lp = toks.shape
+        T = self.max_new_tokens
+        dev = self.device
+        W = lm_head_weight(params["embed"], cfg).float()
+        ids = to_device(toks, dev)
+        lens_d = to_device(lens, dev)
+        seeds_d = to_device(seeds, dev)
+        ar = torch.arange(Lp, device=dev)[None]
+        pad = Lp - lens_d[:, None]
+        real = ar >= pad
+        positions = torch.where(real, ar - pad, 0).to(torch.int32)
+        segments = torch.where(real, 0, -1).to(torch.int32)
+        caches = init_caches(cfg, B, Lp + T, device=dev)
+        h, caches = forward_hidden(params, cfg, ids, positions=positions,
+                                   segments=segments, caches=caches,
+                                   cache_offset=0)
+        logits = h[:, -1].float() @ W
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        pos = lens_d.to(torch.int32)
+        step_ids = torch.arange(T, dtype=torch.int64, device=dev)
+        zeros = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        toks_out, lps_out = [], []
+        for t in range(T):
+            tok = _sample_token_rows(logits, seeds_d,
+                                     step_ids[t].expand(B),
+                                     self.temperature, self.top_p)
+            tok = torch.where(done, self.pad_id, tok)
+            if self.capture_logprobs:
+                lps_out.append(torch.where(
+                    done, 0.0, sampled_token_logprob(logits, tok)))
+            done = done | (tok == self.eos_id)
+            toks_out.append(tok)
+            if t + 1 < T:
+                h, caches = forward_hidden(
+                    params, cfg, tok[:, None], positions=pos[:, None],
+                    segments=zeros, caches=caches, cache_offset=Lp + t)
+                logits = h[:, 0].float() @ W
+            pos = pos + 1
+        resp = torch.stack(toks_out, dim=1).to(torch.int32)
+        is_eos = resp == self.eos_id
+        first = torch.argmax(is_eos.to(torch.int32), dim=1)
+        resp_len = torch.where(is_eos.any(dim=1), first + 1,
+                               T).to(torch.int32)
+        lps = torch.stack(lps_out, dim=1) if self.capture_logprobs else None
+        return RolloutBatch(response_ids=resp, response_len=resp_len,
+                            response_logprobs=lps)

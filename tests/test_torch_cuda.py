@@ -20,7 +20,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain, paged_decode_attention,
+    decode_attention, decode_attention_plain, mla_decode_attention,
+    mla_decode_attention_plain, paged_decode_attention,
     paged_decode_attention_plain, paged_mla_decode_attention,
     paged_mla_decode_attention_plain, paged_mla_verify_attention,
     paged_mla_verify_attention_plain, paged_verify_attention,
@@ -240,7 +241,8 @@ def test_paged_verify_kernel_matches_plain(dev, dtype, B, S, H, Hkv, D, page,
 def test_contiguous_wrappers_launch_the_kernels(dev, dtype, L, lens):
     """decode_attention / verify_attention over a contiguous cache launch
     the paged kernels through a one-page-per-row view (one table entry per
-    row: the Split-L kernel splits it by keys)."""
+    row: the Split-L kernel splits it by keys), each counted under its own
+    name."""
     rng = np.random.RandomState(3)
     B, S, H, Hkv, D = len(lens), 5, 24, 8, 128
     dt = getattr(torch, dtype)
@@ -252,9 +254,9 @@ def test_contiguous_wrappers_launch_the_kernels(dev, dtype, L, lens):
     q_pos = (lens[:, None] - S + np.arange(S)[None]).astype(np.int32)
     q = torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32)).to(dev, dt)
     kp, qp = torch.from_numpy(kv_pos).to(dev), torch.from_numpy(q_pos).to(dev)
-    got_v = _launch_twice("paged_verify_attention", verify_attention, q, k, v,
+    got_v = _launch_twice("verify_attention", verify_attention, q, k, v,
                           kp, qp)
-    got_d = _launch_twice("paged_decode_attention", decode_attention,
+    got_d = _launch_twice("decode_attention", decode_attention,
                           q[:, 0].contiguous(), k, v, kp,
                           qp[:, 0].contiguous())
     f = _f32(q, k, v)
@@ -1511,3 +1513,190 @@ def test_windowed_grad_step_on_card_matches_cpu(dev, arch):
     for a, b in zip(_leaves(g_gpu), _leaves(g_cpu)):
         err = float((a.cpu() - b).abs().max())
         assert err <= 2e-4 * float(b.abs().max()), err
+
+
+# ---------------------------------------------------------------------
+# the group Sampler: the contiguous decode kernels on a model path
+# ---------------------------------------------------------------------
+
+def _ring_positions(rng, B, L, q_pos, invalid_share):
+    """Each row's ring of L slots holding its last L positions up to
+    q_pos[b] (slot i holds the position p <= q with p = i mod L, as a ring
+    written at offset % L), rows that have not wrapped yet holding INVALID
+    in their unwritten slots, and a share of slots INVALID (padding)."""
+    i = np.arange(L)[None]
+    q = np.asarray(q_pos)[:, None]
+    pos = q - (q - i) % L
+    pos = np.where(pos < 0, 2 ** 30, pos)
+    pos = np.where(rng.rand(B, L) < invalid_share, 2 ** 30, pos)
+    return pos.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contiguous_decode_kernel_on_a_rotated_ring(dev, dtype):
+    """decode_attention over a sliding-window ring (window = L = 512):
+    slots out of position order, two rows wrapped, one not yet full, 20 %
+    of slots INVALID (padding), against its plain version; one launch
+    counted as decode_attention."""
+    rng = np.random.RandomState(5)
+    B, L, H, Hkv, D = 3, 512, 24, 8, 128
+    q_pos = np.array([1700, 530, 300], np.int32)
+    kv_pos = _ring_positions(rng, B, L, q_pos, 0.2)
+    dt = getattr(torch, dtype)
+    k, v = (torch.from_numpy(rng.randn(B, L, Hkv, D).astype(np.float32))
+            .to(dev, dt) for _ in range(2))
+    q = torch.from_numpy(rng.randn(B, H, D).astype(np.float32)).to(dev, dt)
+    kp, qp = torch.from_numpy(kv_pos).to(dev), torch.from_numpy(q_pos).to(dev)
+    got = _launch_twice("decode_attention", decode_attention, q, k, v, kp,
+                        qp, window=L)
+    torch.testing.assert_close(got.float(), decode_attention_plain(
+        *_f32(q, k, v), kp, qp, window=L), **TOL[dtype])
+
+
+def _sampler_latent(rng, B, Lp, T, lens, t, r, rd):
+    """A contiguous latent cache as the Sampler leaves it after t decode
+    steps: left padding (INVALID) before each row's prompt, its positions
+    0.. from there, unwritten slots INVALID."""
+    L = Lp + T
+    i = np.arange(L)[None]
+    start = Lp - np.asarray(lens)[:, None]
+    live = (i >= start) & (i < Lp + t)
+    kv_pos = np.where(live, i - start, 2 ** 30).astype(np.int32)
+    q_pos = (np.asarray(lens) + t - 1).astype(np.int32)
+    ckv = rng.randn(B, L, r).astype(np.float32)
+    kr = rng.randn(B, L, rd).astype(np.float32)
+    return ckv, kr, kv_pos, q_pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,r,rd,Lp,T,lens,window", [
+    (16, 512, 64, 1024, 32, (64, 1024, 500, 201), None),   # phase 20 (a)
+    (16, 512, 64, 1024, 32, (64, 1024, 500, 201), 256),
+    (4, 64, 16, 40, 9, (5, 40, 17), None),                  # reduced
+])
+def test_contiguous_mla_wrapper_matches_plain(dev, dtype, H, r, rd, Lp, T,
+                                              lens, window):
+    """mla_decode_attention over a contiguous latent cache, viewed as B
+    pages of length L = Lp + T (no 16-slot pages are gathered), against
+    its plain version at the Sampler's layout; one launch counted as
+    mla_decode_attention."""
+    rng = np.random.RandomState(7)
+    B = len(lens)
+    ckv, kr, kv_pos, q_pos = _sampler_latent(rng, B, Lp, T, lens, T - 3, r,
+                                             rd)
+    dt = getattr(torch, dtype)
+    ckv, kr = (torch.from_numpy(a).to(dev, dt) for a in (ckv, kr))
+    q = torch.from_numpy(rng.randn(B, H, r + rd).astype(np.float32)).to(
+        dev, dt)
+    kp, qp = torch.from_numpy(kv_pos).to(dev), torch.from_numpy(q_pos).to(dev)
+    scale = 192 ** -0.5
+    got = _launch_twice("mla_decode_attention", mla_decode_attention, q, ckv,
+                        kr, kp, qp, scale=scale, window=window)
+    torch.testing.assert_close(got.float(), mla_decode_attention_plain(
+        *_f32(q, ckv, kr), kp, qp, scale=scale, window=window), **TOL[dtype])
+
+
+def _sampler_prompts():
+    rng = np.random.RandomState(0)
+    return [rng.randint(3, 500, size=(n,)).astype(np.int32)
+            for n in (5, 19, 33, 40)]
+
+
+@pytest.mark.parametrize("arch,window", [("llama", None), ("llama", 8),
+                                         ("mla_dense", None)])
+def test_sampler_on_card_matches_cpu(dev, arch, window):
+    """The reduced f32 Sampler, greedy: the card's tokens and lengths are
+    the CPU's, logprobs within 1e-4; the contiguous decode wrapper (llama)
+    or the contiguous MLA wrapper launches layers x (max_new - 1) times, the
+    prefill's SPA forward (llama) layers times; a windowed prompt longer
+    than the window rides the ring."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import init
+    from repro_torch.rl.rollout import Sampler
+    cfg = (_reduced_mla_dense() if arch == "mla_dense"
+           else reduced_config(get_config("llama3.2-3b")))
+    cfg = dataclasses.replace(cfg, sliding_window=window)
+    p_cpu = init(cfg, seed=0, device="cpu")
+    prompts, T = _sampler_prompts(), 10
+    outs = []
+    for where in (dev, "cpu"):
+        params = _to_dev(p_cpu, where)
+        n0 = dict(LAUNCHES)
+        out = Sampler(cfg, 40, T, temperature=0.0, device=where).generate(
+            params, prompts, 3)
+        torch.cuda.synchronize()
+        got = {n: LAUNCHES[n] - n0[n] for n in LAUNCHES}
+        L = cfg.num_layers
+        if where == dev:
+            step = "mla_decode_attention" if cfg.use_mla else \
+                "decode_attention"
+            assert got[step] == L * (T - 1)
+            assert got["spa_attention"] == (0 if cfg.use_mla else L)
+            assert sum(got.values()) == got[step] + got["spa_attention"]
+        outs.append(tuple(t.cpu() for t in out))
+    a, b = outs
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    torch.testing.assert_close(a[2], b[2], atol=1e-4, rtol=1e-4)
+
+
+def test_no_sampler_kernel_runs_off_the_engine_stream(dev):
+    """torch.profiler over a reduced two-iteration training run on the
+    group engine: every prefill SPA forward and every contiguous decode
+    kernel of the Sampler runs on one stream (the engine's), the
+    trainer's SPA forwards and backwards on another."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    cfg, sched, parts = _reduced_pipeline(dev, rollout_engine="group")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hist = sched.run(2)
+        torch.cuda.synchronize()
+    assert all(s.max_staleness == 0 for s in hist)
+    count = collections.defaultdict(collections.Counter)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for kind in ("splitl_kernel", "spa_fwd", "bwd_tiles"):
+            if kind in e.name():
+                count[e.device_resource_id()][kind] += 1
+    L, groups = cfg.num_layers, 2 * 2          # iterations x prompts
+    engine = max(count, key=lambda s: count[s]["splitl_kernel"])
+    assert count[engine]["splitl_kernel"] == L * 7 * groups
+    assert sum(c["splitl_kernel"] for s, c in count.items()
+               if s != engine) == 0
+    assert count[engine]["spa_fwd"] == L * groups
+    assert count[engine]["bwd_tiles"] == 0
+    trainer = [s for s, c in count.items() if c["bwd_tiles"]]
+    assert len(trainer) == 1 and trainer[0] != engine
+    assert count[trainer[0]]["spa_fwd"] == \
+        3 * L * sched.captured_micro_steps
+
+
+def test_flip_during_generate_survives_trainer_allocations(dev):
+    """A store flip while the Sampler's kernels are queued (its engine
+    stream held busy behind a long matmul chain) drops the store's last
+    reference to the tree they read; the trainer's stream then allocates
+    and fills tensors of its leaves' sizes (NaN). The tokens equal an
+    unflipped run's: the tree's memory is not reused before the Sampler's
+    kernels have read it (``record_stream``)."""
+    from repro_torch.device import engine_stream
+    from repro_torch.rl.rollout import Sampler
+    from repro_torch.transfer.service import VersionedParamStore
+    cfg, p_cpu, p_gpu = _reduced_llama(dev)
+    prompts = _sampler_prompts()
+    sampler = Sampler(cfg, 40, 10, temperature=1.0, device=dev)
+    want = sampler.generate(p_gpu, prompts, 11).response_ids.cpu()
+    store = VersionedParamStore()
+    store.install(_to_dev(p_cpu, dev), 0)
+    params, _ = store.snapshot()
+    with torch.cuda.stream(engine_stream(dev)):
+        x = torch.randn(4096, 4096, device=dev)
+        for _ in range(8):
+            x = x @ x * 1e-3
+    out = sampler.generate(params, prompts, 11)
+    del params
+    store.install(_to_dev(p_cpu, dev), 1)       # the old tree's last ref
+    junk = [torch.full_like(t, float("nan")) for t in _leaves(p_gpu)
+            for _ in range(2)]
+    del junk
+    assert torch.equal(out.response_ids.cpu(), want)

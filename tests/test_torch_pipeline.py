@@ -6,7 +6,10 @@ weight-plane's overlap-on == overlap-off trajectory (bitwise within
 torch), strict on-policy consumption, and the parameter trajectory of the
 JAX ``build_pipeline`` on the same weights and rollouts. A paged-engine
 run (with spec decode and the radix cache riding along for MLA) and the
-train CLI complete on the reduced model. The model-level tests run on
+train CLI complete on the reduced model. On the real group engine (the
+Sampler) sync reaches async's parameters, and the off-policy baseline
+runs at eta 1 with staleness 1 made deterministic and each group's
+version checked against a recompute of its captured logprobs. The model-level tests run on
 reduced llama3.2-3b, reduced ``mla_dense`` (deepseek-v2-lite with MoE
 off) and reduced deepseek-v2-lite with MoE on (a dense prelude layer and
 a MoE layer whose router the aux loss trains); the train CLI also trains
@@ -290,12 +293,151 @@ def test_paged_engine_pipeline_on_cpu(cfg):
                zip(_leaves(staged), _leaves(parts["tri"].policy)))
 
 
-def test_group_engine_is_refused(cfg):
+def _parity_reward(resp, answer) -> float:
+    """A reward that varies with the tokens, so real rollouts of a random
+    model give non-zero advantages (it never answers right)."""
+    return float(np.mean(np.asarray(resp) % 2)) if len(resp) else 0.0
+
+
+def _group_run(cfg, jparams, mode, iterations=3, **kw):
+    """A run on the real group engine (the Sampler, sampled at
+    temperature 1) on the JAX weights, with the parity reward."""
+    sched, parts = build_pipeline(
+        cfg, _rl(mode, rollout_engine="group", **kw), seed=0, device="cpu",
+        params=from_jax(jparams, cfg, device="cpu"))
+    parts["generator"].reward_fn = _parity_reward
+    return sched, parts
+
+
+def test_group_engine_is_built(cfg):
+    """``rollout_engine="group"`` builds one Sampler, shared by every
+    instance, for GQA and MLA (dense or MoE feed-forward)."""
+    from repro_torch.rl.rollout import Sampler
+    _, parts = build_pipeline(cfg, _rl("async", rollout_engine="group"),
+                              device="cpu")
+    insts = parts["pool"].instances
+    assert isinstance(parts["sampler"], Sampler) and len(insts) == 2
+    assert all(i.sampler is parts["sampler"] and i.paged_engine is None
+               and not i.store.defer_flip for i in insts)
+
+
+def test_group_engine_refusals(cfg):
+    """SSM stays refused on the group engine, spec decode and the radix
+    cache ride the paged engine only, and the off-policy baseline stays
+    refused on the paged engine (it needs quiescence at a flip)."""
+    import dataclasses
+    ssm = dataclasses.replace(cfg, family="ssm", ssm_state_size=16)
     with pytest.raises(ValueError, match="not ported"):
-        build_pipeline(cfg, _rl("async", rollout_engine="group"),
+        build_pipeline(ssm, _rl("async", rollout_engine="group"),
                        device="cpu")
+    with pytest.raises(ValueError, match="SpecSampler"):
+        build_pipeline(cfg, _rl("async", rollout_engine="group",
+                                spec_decode=True), device="cpu")
+    with pytest.raises(ValueError, match="paged pool"):
+        build_pipeline(cfg, _rl("async", rollout_engine="group",
+                                prefix_cache=True), device="cpu")
     with pytest.raises(ValueError, match="quiescent"):
         build_pipeline(cfg, _rl("async_offpolicy"), device="cpu")
+
+
+def test_group_engine_sync_and_async_reach_the_same_parameters(cfg,
+                                                               jparams):
+    """Proposition 1 on the real group engine: the same keys draw the same
+    rollouts in either mode, so async training reaches sync's parameters
+    up to f32 summation order (the scripted test's bars)."""
+    policies = []
+    for mode in ("sync", "async"):
+        sched, parts = _group_run(cfg, jparams, mode, iterations=2)
+        hist = sched.run(2)
+        assert all(s.max_staleness == 0 and s.trained_tokens > 0
+                   for s in hist)
+        assert sched.captured_micro_steps > 0
+        policies.append(parts["tri"].policy)
+    assert not all(torch.equal(a, b) for a, b in zip(
+        _leaves(policies[0]), _leaves(from_jax(jparams, cfg, device="cpu"))))
+    for a, b in zip(*map(_leaves, policies)):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=5e-4)
+
+
+def _recomputed_logprobs(params, cfg, group):
+    """Each row's response logprobs recomputed by one forward of prompt +
+    response under ``params`` (rows of their own lengths)."""
+    from repro_torch.models import forward_hidden, token_logprobs
+    P = len(group.prompt_ids)
+    out = np.zeros(group.response_ids.shape, np.float32)
+    for g, n in enumerate(group.response_len):
+        seq = np.concatenate([group.prompt_ids, group.response_ids[g, :n]])
+        with torch.no_grad():
+            h, _ = forward_hidden(params, cfg,
+                                  torch.from_numpy(seq.astype(np.int64))[None])
+            out[g, :n] = token_logprobs(
+                params, cfg, h[:, P - 1:P - 1 + n],
+                torch.from_numpy(group.response_ids[g, :n])[None])[0].numpy()
+    return out
+
+
+def test_offpolicy_baseline_on_the_group_engine(cfg, jparams):
+    """``async_offpolicy`` at eta 1 on the real group engine (3
+    iterations). The trainer is held at iteration 0's end until batch 1's
+    groups are queued, so they are generated under version 0 and consumed
+    at version 1: staleness 1 occurs, deterministically. Every consumed
+    group's staleness lies in [0, 1], and its ``weight_version`` is the
+    version that produced it: its captured logprobs equal a recompute
+    under that version's tree, and sit closer to it than to any other
+    version's. A MoE model runs without capacity drops here, where a
+    token's logprob is its own whatever its forward routes."""
+    import dataclasses
+    import threading
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                                  / cfg.num_experts_per_tok)
+    sched, parts = _group_run(cfg, jparams, "async_offpolicy",
+                              staleness_eta=1)
+    queue, trees, seen = parts["queue"], {}, []
+    for name in ("ensure", "publish_async"):
+        def record(params, version, _f=getattr(sched.transfer, name)):
+            trees[version] = params
+            return _f(params, version)
+        setattr(sched.transfer, name, record)
+    queued = threading.Condition()
+    put, get, check = queue.put, queue.get, sched.monitor.check
+
+    def put_notify(item):
+        put(item)
+        with queued:
+            queued.notify_all()
+    queue.put = put_notify
+
+    def get_record(timeout=None):
+        seen.append([get(timeout)])
+        return seen[-1][0]
+    queue.get = get_record
+
+    def check_record(group, version):
+        seen[-1].append(check(group, version))
+        return seen[-1][-1]
+    sched.monitor.check = check_record
+    finish = sched._finish_iteration
+
+    def hold_then_finish(acc):
+        if len(trees) == 1:     # iteration 0: batch 1's groups queue first
+            with queued:
+                assert queued.wait_for(lambda: queue.qsize() >= 3,
+                                       timeout=120)
+        finish(acc)
+    sched._finish_iteration = hold_then_finish
+    hist = sched.run(3)
+    assert len(seen) == 9 and {st for _, st in seen} <= {0, 1}
+    # iteration 1 consumes the last 3 of batches 0 and 1, all version 0
+    assert [st for _, st in seen[3:6]] == [1, 1, 1]
+    assert [s.max_staleness for s in hist][:2] == [0, 1]
+    assert parts["tri"].version == 3 and sorted(trees) == [0, 1, 2, 3]
+    for g, _ in seen:
+        errs = {v: float(np.abs(_recomputed_logprobs(trees[v], cfg, g)
+                                - g.response_logprobs).max())
+                for v in range(3)}
+        assert errs[g.weight_version] < 1e-4, errs
+        assert errs[g.weight_version] == min(errs.values()), errs
 
 
 def test_train_cli_on_cpu(capsys, tmp_path):
@@ -308,6 +450,20 @@ def test_train_cli_on_cpu(capsys, tmp_path):
     assert "iter 1:" in text and "staleness=0" in text
     hist = json.loads(out.read_text())
     assert [h["iteration"] for h in hist] == [0, 1]
+
+
+def test_train_cli_offpolicy_on_the_group_engine(capsys):
+    """``--rollout-engine group --mode async_offpolicy``: the off-policy
+    baseline through the CLI; ``--rollout-engine paged`` refuses it."""
+    train.main(["--device", "cpu", "--reduced", "--iterations", "2",
+                "--batch-prompts", "2", "--group-size", "4",
+                "--rollout-engine", "group", "--mode", "async_offpolicy",
+                "--max-prompt-len", "48", "--max-response-len", "8"])
+    text = capsys.readouterr().out
+    assert "engine=group" in text and text.count("  iter ") == 2
+    with pytest.raises(ValueError, match="quiescent"):
+        train.main(["--device", "cpu", "--reduced", "--mode",
+                    "async_offpolicy"])
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
