@@ -38,7 +38,12 @@ Phases, each printing one JSON line (every phase fails the run on error):
      and over a rotated sliding-window ring (window = L = 8192, slots out
      of position order, one row not wrapped, 5 % INVALID padding), and
      the contiguous MLA wrapper (mla_decode_attention: the MLA kernel on B
-     pages of length L) at phase 20's mla_dense shape. Each
+     pages of length L) at phase 20's mla_dense shape; the contiguous
+     verify_attention at phase 21 (a)'s spec shape (B 4 slots, S 5, L
+     1024 + 32 + 5, the slot engine's layout: slot == position) and on a
+     rotated ring of window + 5 slots (window 8192), and the contiguous
+     MLA verify route (mla_verify_attention) at phase 21 (a)'s mla_dense
+     spec shape, bf16 and f32. Each
      decode / verify case also prints how the wrapper launched it (regime:
      Split-L or query tiles; context splits; blocks of the main kernel)
      and the share of its bound reached (bound_ms / ms);
@@ -297,6 +302,39 @@ The profile phases also time each replay with CUDA events
      CPU, greedy (tokens and lengths equal, logprobs within 1e-4), and
      sampled rows equal to the paged engine's on the card under the same
      key (MoE off).
+ 21. slot_engines (last): the dense-cache slot and spec engines, the
+     first model path through the contiguous verify_attention and the
+     contiguous MLA verify route. (a) cbatch_serve: ContinuousBatchingSampler
+     on full-width llama3.2-3b, then full-width mla_dense, bf16, phase
+     3's 8 prompts x 32 new through 4 slots, greedy, at D 1, D 8, spec k
+     4 (prompt lookup) and (llama) spec k 4 with the resident draft
+     model (14 layers, weights from --seed); wall, tok/s, engine steps,
+     verify steps and acceptance, peak memory and launches, checked
+     against the engine's own step count: the contiguous decode wrapper
+     (or the MLA one) layers x device steps, the verify wrapper (or the
+     MLA one) layers x verify steps, SPA layers x 8 admissions (llama),
+     plus the draft model's calls (draft layers x k-step steps and
+     one-token feeds through decode, x wider feeds through verify, x
+     prefills through SPA); D 1 == D 8 bitwise; spec tokens of 4 requests
+     against a run of the plain versions on the card, a difference
+     excused only at a tie: at the first differing step the plain run's
+     gap between the two tokens is within the two runs' own logit
+     difference there, at most 0.25 (``greedy_flips`` on the verify
+     logits ``VerifyLogits`` records). (b)
+     spec_group_train: phase 6's run on --rollout-engine group --spec (the
+     SpecSampler, k 4, prompt lookup), 2 async iterations at staleness 0,
+     verify_attention checked against 12 x the verify steps. (c)
+     model_draft_paged: phase 8's workload on the paged engine, greedy,
+     with the prompt-lookup draft and with the draft model: the verify
+     graph replays once a verify step, the draft model's calls all on the
+     engine stream (recorded per call), launches checked, tokens equal to
+     the prompt-lookup run's or differing only at a tie (both runs again,
+     their verify logits recorded, ``greedy_flips``). (d) slot_parity:
+     the reduced f32 models of phase 20 (c) through the slot engine at D 1
+     / D 3 / spec k 2, the SpecSampler and the SpecSampler with the draft
+     model, card == CPU (tokens; logprobs within 1e-4), and (MoE and
+     window off) the slot engine's sampled rows equal to the paged
+     engine's on the card under the same key.
 
 The SPA kernels run bf16 on the tensor cores (wgmma, with the
 probabilities and dS fed as a bf16 hi + lo pair) and f32 on the CUDA cores
@@ -320,8 +358,9 @@ mask (Dv != Dk); its bytes count each unique physical (page, slot) pair
 the call sees once.
 
 Then one line {"phase": "elapsed"} with the seconds from the script's
-start to its end and to the last line of each phase, then one line
-{"kernels": [...]} with ten entries: the four kernels of
+start to its end and to the last line of each phase (and phase 21's own
+seconds), then one line
+{"kernels": [...]} with eleven entries: the four kernels of
 the training path at the training run's shapes and launch counts (phase
 6; the two SPA entries also carry the bf16 1024-token prefill case, the
 serving shape, under "bf16_prefill"; the paged decode entry phase 19's
@@ -338,10 +377,14 @@ per iteration, and the verify entry's "suffix_prefill" case with phase
 on deepseek-v2-lite as published, the decode entry phase 18's too, as
 does the transfer_cast entry); the contiguous decode_attention with
 phase 20 (a)'s llama launches, timed at its shape (the 8k ring case and
-phase 20 (b)'s training launches beside it), verify_attention at its
-phase-2 shape with 0 launches (no model path calls it yet), and the
-contiguous MLA route (mla_decode_attention) with phase 20 (a)'s mla_dense
-launches; and last {"ok": true, "device": {...}}.
+phase 20 (b)'s training launches beside it), verify_attention with
+phase 21 (a)'s llama spec launches (its model-draft run's and (b)'s
+training launches beside them), timed at that spec shape (the 8k ring
+and the L 1060 case beside it), the contiguous MLA route
+(mla_decode_attention) with phase 20 (a)'s mla_dense launches, and the
+contiguous MLA verify route (mla_verify_attention) with phase 21 (a)'s
+mla_dense spec launches (bf16, the f32 case beside it); and last
+{"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
 """
@@ -1001,6 +1044,138 @@ def sampler_mla_setup(torch, dev, gen, dtype):
                  "L": L, "page": L, "H": H, "r": r, "rd": rd,
                  "scale": scale, "visible_keys": keys,
                  "layout": "group Sampler, left-padded"}}
+
+
+def slot_layout(np, lens, t: int, L: int):
+    """The slot engine's contiguous cache in phase 21 (a)'s spec run at a
+    verify step of a steady row t tokens in: row b from slot 0 (slot ==
+    position), its prompt and t committed tokens, the block's S slots from
+    the last committed one on, 2 stale speculative entries after them
+    (positions past every query), the rest unwritten (INVALID). Returns
+    (kv_pos (B, L), q_pos (B, S)), S = SPEC_K + 1."""
+    S = SPEC_K + 1
+    n = np.asarray(lens)[:, None] + t
+    i = np.arange(L)[None]
+    kv_pos = np.where(i < n + S + 1, i, 2 ** 30).astype(np.int32)
+    q_pos = (n - 1 + np.arange(S)[None]).astype(np.int32)
+    return kv_pos, q_pos
+
+
+def _contiguous_verify(torch, dev, gen, dtype, kv_pos, q_pos, window, info):
+    """verify_attention over a contiguous (B, L, Hkv, D) cache at
+    full-width llama heads holding ``kv_pos``, S queries a row at
+    ``q_pos`` (B, S)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        verify_attention, verify_attention_plain)
+    H, Hkv, D = 24, 8, 128
+    (B, L), S = kv_pos.shape, q_pos.shape[1]
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, L, Hkv, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, L, Hkv, D, generator=gen, device=dev).to(dt)
+    kvp = torch.from_numpy(kv_pos).to(dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    vis = _visible(np, q_pos, kv_pos, window)
+    pairs, keys = int(vis.sum()), int(vis.any(axis=1).sum())
+    mask = kvp[:, None, :] <= qp[:, :, None]
+    if window is not None:
+        mask &= (qp[:, :, None] - kvp[:, None, :]) < window
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None], enable_gqa=True)
+    elt = q.element_size()
+    return {
+        "name": "verify_attention", "fn": verify_attention,
+        "plain": verify_attention_plain, "args": (q, k, v, kvp, qp),
+        "kw": {"window": window}, "library": library,
+        "bytes": (2 * q.numel() + 2 * keys * Hkv * D) * elt
+        + 4 * (kv_pos.size + q_pos.size),
+        "flops": 4.0 * D * H * pairs,
+        "info": {"kernel": "verify_attention", "dtype": dtype, "B": B,
+                 "S": S, "L": L, "H": H, "Hkv": Hkv, "D": D,
+                 "window": window, "visible_keys": keys,
+                 "visible_pairs": pairs, **info}}
+
+
+def slot_verify_setup(torch, dev, gen, dtype):
+    """The contiguous verify wrapper at phase 21 (a)'s llama spec shape:
+    B 4 slots holding 4 of phase 3's prompts, S 5, L 1024 + 32 + 5 (the
+    slot engine's cache with spec slack), 16 tokens into the response."""
+    import numpy as np
+    L = SAMPLER_LP + SAMPLER_NEW + SPEC_K + 1
+    kv_pos, q_pos = slot_layout(np, phase3_lens(np, 0)[:SLOT_SLOTS], 16, L)
+    return _contiguous_verify(torch, dev, gen, dtype, kv_pos, q_pos, None,
+                              {"layout": "slot engine, slot == position"})
+
+
+def ring_verify_setup(torch, dev, gen, dtype, *, B=4, W=8192):
+    """The contiguous verify wrapper over a sliding-window ring of
+    window + k + 1 slots (window 8192, long_context_variant's; the dense
+    spec engines' ring slack): each row's last L positions up to its last
+    query at slot (position mod L), out of position order; one row has
+    not wrapped (its unwritten slots INVALID), 5 % of the slots are
+    INVALID padding; S 5 queries a row."""
+    import numpy as np
+    S = SPEC_K + 1
+    L = W + S
+    rng = np.random.RandomState(W + B + S)
+    last = np.linspace(W // 2, 3 * W, B).astype(np.int32)
+    i = np.arange(L)[None]
+    kv_pos = last[:, None] - (last[:, None] - i) % L
+    kv_pos = np.where((kv_pos < 0) | (rng.rand(B, L) < 0.05), 2 ** 30,
+                      kv_pos).astype(np.int32)
+    q_pos = (last[:, None] - S + 1 + np.arange(S)[None]).astype(np.int32)
+    return _contiguous_verify(torch, dev, gen, dtype, kv_pos, q_pos, W,
+                              {"layout": "ring of window + k + 1, rotated"})
+
+
+def slot_mla_verify_setup(torch, dev, gen, dtype):
+    """The contiguous MLA verify wrapper (mla_verify_attention) at phase
+    21 (a)'s mla_dense spec shape: full-width heads, B 4 slots, S 5, the
+    slot engine's latent cache of L 1024 + 32 + 5 slots viewed as B pages
+    of length L."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        mla_verify_attention, mla_verify_attention_plain)
+    H, r, rd, nd = MLA_HEADS
+    scale = (nd + rd) ** -0.5
+    L = SAMPLER_LP + SAMPLER_NEW + SPEC_K + 1
+    kv_pos, q_pos = slot_layout(np, phase3_lens(np, 0)[:SLOT_SLOTS], 16, L)
+    B, S = q_pos.shape
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, r + rd, generator=gen, device=dev).to(dt)
+    ckv = torch.randn(B, L, r, generator=gen, device=dev).to(dt)
+    kr = torch.randn(B, L, rd, generator=gen, device=dev).to(dt)
+    kvp = torch.from_numpy(kv_pos).to(dev)
+    qp = torch.from_numpy(q_pos).to(dev)
+    vis = _visible(np, q_pos, kv_pos, None)
+    pairs, keys = int(vis.sum()), int(vis.any(axis=1).sum())
+
+    def library():
+        k = torch.cat([ckv, kr], dim=-1)[:, None]
+        m = (kvp[:, None, :] <= qp[:, :, None])[:, None]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k, ckv[:, None], attn_mask=m, scale=scale,
+            enable_gqa=True)
+    elt = q.element_size()
+    return {
+        "name": "mla_verify_attention", "fn": mla_verify_attention,
+        "plain": mla_verify_attention_plain,
+        "args": (q, ckv, kr, kvp, qp), "kw": dict(scale=scale),
+        "library": library,
+        "bytes": (B * S * H * ((r + rd) + r) + keys * (r + rd)) * elt
+        + 4 * (kv_pos.size + q_pos.size),
+        "flops": 2.0 * pairs * H * ((r + rd) + r),
+        "info": {"kernel": "mla_verify_attention", "dtype": dtype, "B": B,
+                 "S": S, "L": L, "page": L, "H": H, "r": r, "rd": rd,
+                 "scale": scale, "visible_keys": keys,
+                 "visible_pairs": pairs,
+                 "layout": "slot engine, slot == position"}}
 
 
 def paged_case(torch, timer, case):
@@ -2049,11 +2224,12 @@ def run_profiled(torch, run, iterations: int):
 def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
                      drain: int = 1, profile: bool = False, cfg=None,
                      phase: str = "train", hook=None, engine: str = "paged",
-                     mode: str = "async"):
+                     mode: str = "async", spec_k: int = 0):
     """Phase 6's run (phase 16's with ``cfg`` full-depth f32 mla_dense,
     phase 18's with 3-layer f32 deepseek-v2-lite; phase 20's with
     ``engine="group"``, the group Sampler, in ``mode`` async or
-    async_offpolicy at eta 1). ``profile``: its last iteration runs under
+    async_offpolicy at eta 1; phase 21's with ``engine="group"`` and
+    ``spec_k``, the SpecSampler). ``profile``: its last iteration runs under
     torch.profiler (``run_profiled``). ``hook(sched, parts)`` runs once the
     pipeline is built, before the first iteration."""
     from repro_torch.configs.base import RLConfig
@@ -2066,7 +2242,8 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
                   max_prompt_len=TRAIN_PROMPT, max_response_len=TRAIN_RESP,
                   shared_prompt_attention=True, capture_logprobs=True,
                   transfer_wire_dtype="bfloat16", transfer_overlap=True,
-                  decode_drain_interval=drain, seed=seed)
+                  decode_drain_interval=drain, spec_decode=bool(spec_k),
+                  spec_k=spec_k or 4, seed=seed)
     torch.cuda.synchronize()
     start_mem = torch.cuda.memory_allocated(dev) / 2 ** 30
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2091,7 +2268,7 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
             torch, store.snapshot()[0], params)])
         return v
     sched.transfer.ensure = checked_ensure
-    sampler, calls = parts["sampler"], [0]
+    sampler, calls, verifies = parts["sampler"], [0], [0]
     if sampler is not None:
         generate = sampler.generate
 
@@ -2099,6 +2276,14 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
             calls[0] += 1
             return generate(*a, **kw)
         sampler.generate = counted
+    if spec_k:
+        # the SpecSampler commits one verify step's rows per call
+        commit = sampler._commit_rows
+
+        def verified(*a, **kw):
+            verifies[0] += 1
+            return commit(*a, **kw)
+        sampler._commit_rows = verified
     if hook is not None:
         hook(sched, parts)
     reset_launch_counts()
@@ -2138,7 +2323,15 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
     expect = {name: 0 for name in launches}
     expect.update({verify: 0, decode: L * (steps + warm), other_verify: 0,
                    other_decode: 0, "transfer_cast": n_leaves * publishes})
-    if sampler is not None:
+    if spec_k:
+        # one prefill a SpecSampler call, then one verify forward a step
+        # through the contiguous verify wrapper
+        prefills = calls[0]
+        step = "mla_verify_attention" if cfg.use_mla else "verify_attention"
+        expect[step] = L * verifies[0]
+        formula[step] = f"L*verify steps = {L}*{verifies[0]}"
+        formula[decode] = "0 (the group engine)"
+    elif sampler is not None:
         # one prefill a Sampler call, then max_response_len - 1 decode
         # forwards through the contiguous wrapper
         prefills = calls[0]
@@ -2173,7 +2366,9 @@ def train_full_width(torch, np, dev, seed: int, iterations: int = 3,
         "spa": True, "capture_logprobs": True, "wire_dtype": "bfloat16",
         "overlap": True, "drain_interval": drain, "setup_s": setup_s,
         "engine": engine, "staleness_eta": rl.staleness_eta,
-        "sampler_calls": calls[0],
+        "sampler_calls": calls[0], "spec_k": spec_k,
+        **({"verify_steps": verifies[0],
+            "acceptance_rate": sampler.acceptance_rate} if spec_k else {}),
         "graph": (None if sampler is not None else
                   parts["pool"].instances[0].paged_engine.capture_ms),
         "iterations": [{
@@ -3751,8 +3946,9 @@ def window_serve(torch, np, dev, seed: int, timer, smi: str):
 
 class plain_kernels:
     """Within the block, models/attention.py calls the plain versions in
-    place of the SPA wrapper and the contiguous decode wrappers: the same
-    model path, eager PyTorch on the card, no kernel of the port."""
+    place of the SPA wrapper and the contiguous decode and verify
+    wrappers: the same model path, eager PyTorch on the card, no kernel
+    of the port."""
 
     def __init__(self):
         from repro_torch.kernels import decode_attention as da
@@ -3767,7 +3963,9 @@ class plain_kernels:
         self.mod = attention
         self.swap = {"spa_attention": spa,
                      "decode_attention": da.decode_attention_plain,
-                     "mla_decode_attention": da.mla_decode_attention_plain}
+                     "verify_attention": da.verify_attention_plain,
+                     "mla_decode_attention": da.mla_decode_attention_plain,
+                     "mla_verify_attention": da.mla_verify_attention_plain}
         self.saved = {}
 
     def __enter__(self):
@@ -4002,6 +4200,453 @@ def group_sampler(torch, np, dev, seed: int, smi: str):
     yield sampler_parity(torch, np, dev, seed)
 
 
+# ---------------------------------------------------------------------
+# phase 21: the dense-cache slot and spec engines
+# ---------------------------------------------------------------------
+
+SLOT_SLOTS = 4            # phase 21 (a): 4 slots for phase 3's 8 requests
+
+
+class DraftCounter:
+    """Counts a resident draft model's device calls (its prefills, its
+    feeds by width: one token a row goes through the contiguous decode
+    wrapper, more through the verify wrapper, and its k-step blocks with
+    their steps) and records the stream each call was issued on."""
+
+    def __init__(self, torch, draft):
+        import collections
+        self.n = collections.Counter()
+        self.streams = set()
+        for name in ("_prefill", "_feed", "_kstep"):
+            setattr(draft, name, self._wrap(torch, name,
+                                            getattr(draft, name)))
+
+    def _wrap(self, torch, name, fn):
+        def counted(*a, **kw):
+            self.streams.add(torch.cuda.current_stream().cuda_stream)
+            if name == "_feed":
+                self.n["feed_multi" if a[0].shape[1] > 1 else
+                       "feed_one"] += 1
+            elif name == "_kstep":
+                self.n["kstep_blocks"] += 1
+                self.n["kstep_steps"] += a[-1]
+            else:
+                self.n["prefills"] += 1
+            return fn(*a, **kw)
+        return counted
+
+
+def draft_launches(cfg, n: dict) -> dict:
+    """The draft model's launches by wrapper from its call counts: its
+    k-step blocks and one-token feeds through the contiguous decode
+    wrapper, wider feeds through the verify wrapper, its prefills (GQA)
+    through SPA, each once a draft layer."""
+    from repro_torch.spec.draft import draft_config
+    Ld = draft_config(cfg).num_layers
+    mla = cfg.use_mla
+    return {"mla_decode_attention" if mla else "decode_attention":
+            Ld * (n["kstep_steps"] + n["feed_one"]),
+            "mla_verify_attention" if mla else "verify_attention":
+            Ld * n["feed_multi"],
+            "spa_attention": 0 if mla else Ld * n["prefills"]}
+
+
+class VerifyLogits:
+    """Within the block, a spec engine's verify logits: for each row of
+    each verify step, the target logits its committed tokens were chosen
+    from (lanes 0 .. count - 1, the ones whose context the commit kept),
+    copied to the host and keyed (request, t) as ``StepLogits`` keys an
+    engine's, so that ``greedy_flips`` can read them. Request rid of a
+    call keyed ``key`` is the row seeded ``_request_seed(key, rid)``
+    (the slot engine's and the paged engine's ``serve``'s). It wraps
+    ``verify_block`` where ``module`` calls it, keeping a reference to its
+    logits, row seeds and committed lengths (a captured step's are the
+    graph's own memory, rewritten by each replay, so an engine must be
+    built and loaded inside the block), and the step's readback
+    (``drain_verify`` where ``drain_module`` calls it, or the paged
+    engine's ``_drain_verify`` given by ``eng``) to copy them out once the
+    counts are read. A key keeps its first record: a slot left idle
+    after its request finished re-verifies under that request's seed at
+    length 0, after every t of it was recorded."""
+
+    def __init__(self, torch, module, key, n_requests: int,
+                 drain_module=None):
+        from repro_torch.core.cbatch import _request_seed
+        self.torch, self.mod, self.drain_mod = torch, module, drain_module
+        self.rid = {_request_seed(key, r): r for r in range(n_requests)}
+        self.logits, self.held, self.saved = {}, None, {}
+
+    def _read(self, count) -> None:
+        p, seeds, rc = self.held
+        host = p.float().cpu().numpy()
+        for b, (seed, c, n) in enumerate(zip(seeds.tolist(), rc.tolist(),
+                                             count)):
+            rid = self.rid.get(seed)
+            for j in range(n if rid is not None else 0):
+                self.logits.setdefault((rid, c + j), host[b, j])
+
+    def __enter__(self):
+        orig = self.mod.verify_block
+
+        def held(p, draft, seeds, rc, **kw):
+            self.held = (p, seeds, rc)
+            return orig(p, draft, seeds, rc, **kw)
+        self.saved[self.mod, "verify_block"] = orig
+        self.mod.verify_block = held
+        if self.drain_mod is not None:
+            drain = self.drain_mod.drain_verify
+
+            def drained(*a):
+                out = drain(*a)
+                self._read(out[2])
+                return out
+            self.saved[self.drain_mod, "drain_verify"] = drain
+            self.drain_mod.drain_verify = drained
+        return self
+
+    def engine(self, eng):
+        """Read ``eng``'s (the paged engine's) verify steps too."""
+        drain = eng._drain_verify
+
+        def drained(out, ready):
+            res = drain(out, ready)
+            self._read(res[2])
+            return res
+        eng._drain_verify = drained
+        return eng
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+
+
+def slot_expect(cfg, eng, launches: dict, counts=None):
+    """Phase 21 (a)'s launch formulas from the engine's own step count
+    (``eng.steps``: device decode steps, or verify steps with spec) and
+    admissions, plus a draft model's calls. Returns (expect, formula)."""
+    L, mla = cfg.num_layers, cfg.use_mla
+    decode = "mla_decode_attention" if mla else "decode_attention"
+    verify = "mla_verify_attention" if mla else "verify_attention"
+    expect = {name: 0 for name in launches}
+    formula = {}
+    if eng.spec_k:
+        expect[verify] = L * eng.steps
+        formula[verify] = f"L*verify steps = {L}*{eng.steps}"
+    else:
+        expect[decode] = L * eng.steps
+        formula[decode] = f"L*decode device steps = {L}*{eng.steps}"
+    expect["spa_attention"] = 0 if mla else L * 8
+    formula["spa_attention"] = "0 (MLA: expanded prefill)" if mla else \
+        f"L*admissions = {L}*8"
+    if counts is not None:
+        for name, n in draft_launches(cfg, counts.n).items():
+            expect[name] += n
+            formula[name] = formula.get(name, "0") + \
+                f" + draft layers x calls = {n}"
+    return expect, formula
+
+
+def cbatch_serve(torch, np, dev, cfg, seed: int, smi: str):
+    """Phase 21 (a) on one model: ContinuousBatchingSampler serving phase
+    3's 8 prompts x 32 new tokens through 4 slots, greedy, at D 1, D 8,
+    spec k 4 with the prompt-lookup draft and (GQA only) spec k 4 with the
+    resident draft model; launches checked against the engine's step
+    count, D 1 == D 8 bitwise, spec tokens of 4 requests against a run of
+    the plain versions on the card (a difference excused only at a tie
+    within the two runs' own logit difference at that step,
+    ``greedy_flips`` on ``VerifyLogits``)."""
+    from repro_torch.core.cbatch import ContinuousBatchingSampler
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import init
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    params = init(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    lens, prompts = phase3_prompts(np, cfg, seed)
+    kw = dict(num_slots=SLOT_SLOTS, max_prompt_len=SAMPLER_LP,
+              max_new_tokens=SAMPLER_NEW, temperature=0.0, device=dev)
+    ContinuousBatchingSampler(cfg, **kw).run(params, prompts[:1], seed)
+    runs = {"d1": dict(), "d8": dict(drain_interval=8),
+            "spec4": dict(spec_k=SPEC_K)}
+    if not cfg.use_mla:
+        runs["spec4_model_draft"] = dict(spec_k=SPEC_K, spec_draft="model")
+    lines, tokens = [], {}
+    for name, extra in runs.items():
+        eng = ContinuousBatchingSampler(cfg, **kw, **extra)
+        counts = DraftCounter(torch, eng._draft) \
+            if extra.get("spec_draft") == "model" else None
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.time()
+        done = eng.run(params, prompts, seed)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+        expect, formula = slot_expect(cfg, eng, launches, counts)
+        if launches != expect:
+            fail(f"cbatch_serve {cfg.name} {name}: launches {launches} != "
+                 f"{expect} ({formula})")
+        tokens[name] = _tokens(done)
+        n_tok = sum(len(t) for t in tokens[name].values())
+        if len(done) != len(prompts) or not all(
+                1 <= len(t) <= SAMPLER_NEW and 0 <= min(t) and
+                max(t) < cfg.vocab_size for t in tokens[name].values()):
+            fail(f"cbatch_serve {cfg.name} {name}: bad completions")
+        line = {"run": name, "wall_s": wall, "generated_tokens": n_tok,
+                "tok_per_s": n_tok / wall, "engine_steps": eng.steps,
+                "completion_order": [c.request_id for c in done],
+                "peak_mem_gib": torch.cuda.max_memory_allocated(dev)
+                / 2 ** 30, "launches": launches,
+                "expected_launches": expect, "launch_formula": formula}
+        if eng.spec_k:
+            line.update(verify_steps=eng.steps, row_verifies=eng.spec_steps,
+                        acceptance_rate=eng.acceptance_rate,
+                        tokens_per_forward=n_tok / eng.spec_steps)
+        if counts is not None:
+            line["draft_calls"] = dict(counts.n)
+        lines.append(line)
+        del eng
+    if tokens["d1"] != tokens["d8"]:
+        fail(f"cbatch_serve {cfg.name}: D 1 tokens != D 8 tokens")
+    # spec k 4, 4 requests: the kernels against the plain versions
+    from repro_torch.core import cbatch as cbatch_mod
+    from repro_torch.spec import sampler as spec_mod
+    sub = list(prompts[:4])
+    spec = ContinuousBatchingSampler(cfg, **kw, spec_k=SPEC_K)
+    with VerifyLogits(torch, spec_mod, seed, 4, cbatch_mod) as lk:
+        got = _tokens(spec.run(params, sub, seed))
+    with plain_kernels(), VerifyLogits(torch, spec_mod, seed, 4,
+                                       cbatch_mod) as lp:
+        want = _tokens(spec.run(params, sub, seed))
+    torch.cuda.synchronize()
+    flips = greedy_flips(np, got, want, lk, lp,
+                         what=f"cbatch_serve {cfg.name} spec vs plain")
+    spec_vs_d1 = sum(tokens["spec4"][r] == tokens["d1"][r]
+                     for r in tokens["d1"])
+    del params, spec
+    return {
+        "phase": "cbatch_serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "dtype": cfg.param_dtype, "card": smi, "init_s": init_s,
+        "requests": len(prompts), "slots": SLOT_SLOTS,
+        "prompt_lens": [int(n) for n in lens],
+        "max_prompt_len": SAMPLER_LP, "max_new": SAMPLER_NEW,
+        "temperature": 0.0, "spec_k": SPEC_K, "runs": lines,
+        "d1_equals_d8": True, "spec4_equal_d1_requests": spec_vs_d1,
+        "spec_vs_plain_requests": 4,
+        "spec_vs_plain_equal": sum(got[r] == want[r] for r in got),
+        "spec_vs_plain_tie_flips": {str(r): v for r, v in flips.items()},
+        "first_tokens": [tokens["d1"][r][:8] for r in range(2)]}
+
+
+def model_draft_paged(torch, np, dev, seed: int, smi: str):
+    """Phase 21 (c): phase 8's workload (phase 3's 8 requests, 32 new, 4
+    slots, page 16, spec k 4) on the paged engine, greedy, with the
+    prompt-lookup draft and then with the resident draft model. The draft
+    model's calls run eagerly on the engine's stream, beside the verify
+    graph's replays; launches checked (the target's verify graph, the
+    draft's wrappers); tokens equal the prompt-lookup run's or differ
+    only at a tie: then both runs go again, unmeasured, with their verify
+    logits recorded (``VerifyLogits``), and ``greedy_flips`` holds each
+    flip to the runs' own logit difference at that step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.launch.serve import build_paged_engine
+    from repro_torch.models import init
+    cfg = get_config("llama3.2-3b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = HeldTree(init(cfg, seed=seed, device=dev))
+    lens, prompts = phase3_prompts(np, cfg, seed)
+    kw = dict(max_prompt_len=1024, max_new=32, num_slots=4, page_size=16,
+              temperature=0.0, spec_k=SPEC_K, seed=seed, device=dev)
+    out, tokens = {"phase": "model_draft_paged", "arch": cfg.name,
+                   "layers": cfg.num_layers, "dtype": cfg.param_dtype,
+                   "card": smi, "requests": len(prompts), "spec_k": SPEC_K,
+                   "temperature": 0.0, "runs": []}, {}
+    for draft in ("prompt_lookup", "model"):
+        eng = build_paged_engine(cfg, spec_draft=draft, **kw)
+        params = weights.load(eng)
+        counts = DraftCounter(torch, eng._draft) if draft == "model" \
+            else None
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.time()
+        done = eng.serve(params, prompts, seed)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(LAUNCHES)
+        snap = eng.stats_snapshot()
+        L = cfg.num_layers
+        expect = {name: 0 for name in launches}
+        expect["spa_attention"] = L * snap["prefills"]
+        expect["paged_verify_attention"] = L * snap["decode_steps"]
+        if counts is not None:
+            for name, n in draft_launches(cfg, counts.n).items():
+                expect[name] += n
+        if launches != expect or snap["prefills"] != len(prompts) or \
+                snap["graph_replays"] != snap["decode_steps"]:
+            fail(f"model_draft_paged {draft}: launches {launches} != "
+                 f"{expect} or replays {snap['graph_replays']} != verify "
+                 f"steps {snap['decode_steps']}")
+        if counts is not None and counts.streams != {eng.stream.cuda_stream}:
+            fail(f"model_draft_paged: draft calls on streams "
+                 f"{counts.streams}, not the engine's")
+        if not _pages_conserved(eng):
+            fail(f"model_draft_paged {draft}: pages did not all return")
+        tokens[draft] = _tokens(done)
+        n_tok = sum(len(t) for t in tokens[draft].values())
+        out["runs"].append({
+            "draft": draft, "wall_s": wall, "generated_tokens": n_tok,
+            "tok_per_s": n_tok / wall, "verify_steps": snap["decode_steps"],
+            "graph_replays": snap["graph_replays"],
+            "acceptance_rate": eng.acceptance_rate,
+            "tokens_per_forward": n_tok / snap["spec_steps"],
+            "launches": launches, "expected_launches": expect,
+            **({"draft_calls": dict(counts.n)} if counts else {})})
+        del eng, params
+    flips = {}
+    if tokens["model"] != tokens["prompt_lookup"]:
+        # both runs again, unmeasured, their verify logits read out each
+        # step: the tokens must come out as in the measured runs
+        from repro_torch.core import paged as paged_mod
+        logged = {}
+        for draft in ("prompt_lookup", "model"):
+            with VerifyLogits(torch, paged_mod, seed, len(prompts)) as lg:
+                eng = lg.engine(build_paged_engine(cfg, spec_draft=draft,
+                                                   **kw))
+                params = weights.load(eng)
+                again = _tokens(eng.serve(params, prompts, seed))
+                torch.cuda.synchronize()
+            if again != tokens[draft]:
+                fail(f"model_draft_paged {draft}: a second run gave "
+                     f"{again}, not {tokens[draft]}")
+            logged[draft] = lg
+            del eng, params
+        flips = greedy_flips(np, tokens["model"], tokens["prompt_lookup"],
+                             logged["model"], logged["prompt_lookup"],
+                             what="model_draft_paged")
+    out.update(draft_on_engine_stream=True,
+               equal_requests=sum(tokens["model"][r] ==
+                                  tokens["prompt_lookup"][r]
+                                  for r in tokens["model"]),
+               tie_flips={str(r): v for r, v in flips.items()})
+    del weights
+    return out
+
+
+def _slot_parity_run(torch, cfg, where, params, draft_params, mode,
+                     prompts, key, temperature=0.0):
+    """One run of a slot or spec engine on ``where``: {request: tokens}
+    and the captured logprobs (SpecSampler) or None."""
+    from repro_torch.core.cbatch import ContinuousBatchingSampler
+    from repro_torch.spec.sampler import SpecSampler
+    Lp, T = 40, 12
+    if mode.startswith("spec_sampler"):
+        kw = dict(draft="model", draft_params=draft_params) \
+            if mode.endswith("model_draft") else {}
+        o = SpecSampler(cfg, Lp, T, spec_k=2, temperature=temperature,
+                        device=where, **kw).generate(params, prompts, key)
+        ids, lens = o.response_ids.tolist(), o.response_len.tolist()
+        return ({b: ids[b][: lens[b]] for b in range(len(prompts))},
+                o.response_logprobs.cpu())
+    extra = {"cbatch_d1": {}, "cbatch_d3": dict(drain_interval=3),
+             "cbatch_spec2": dict(spec_k=2)}[mode]
+    done = ContinuousBatchingSampler(
+        cfg, num_slots=2, max_prompt_len=Lp, max_new_tokens=T,
+        temperature=temperature, device=where, **extra).run(
+        params, prompts, key, max_new_per_request=[12, 5, 9, 7])
+    return _tokens(done), None
+
+
+def slot_parity(torch, np, dev, seed: int):
+    """Phase 21 (d): on each reduced f32 model of phase 20 (c) the slot
+    engine (D 1, D 3, spec k 2), the SpecSampler and the SpecSampler with
+    the draft model (the same draft weights on both) on the card against
+    the CPU, greedy: tokens equal, the SpecSampler's logprobs within 1e-4;
+    then (MoE and window off) the slot engine sampled at temperature 1 on
+    the card, every request's tokens equal to the paged engine's
+    ``serve`` under the same key (request rid draws as row 0 of the group
+    keyed (key, rid)). Under a window the slot engine keeps the JAX
+    engine's prefill, whose right-padded row ring-writes its padding over
+    the prompt's in-window keys (ROADMAP fact H), so its tokens are held
+    to JAX's, not to the paged engine's."""
+    from repro_torch.core.cbatch import ContinuousBatchingSampler
+    from repro_torch.core.paged import PagedGroupEngine
+    from repro_torch.models import init
+    from repro_torch.spec.draft import draft_config
+    rng = np.random.RandomState(seed + 21)
+    prompts = [rng.randint(3, 500, size=(n,)).astype(np.int32)
+               for n in (5, 19, 33, 40)]
+    modes = ("cbatch_d1", "cbatch_d3", "cbatch_spec2", "spec_sampler",
+             "spec_sampler_model_draft")
+    out = {}
+    for name, cfg in _sampler_parity_cfgs().items():
+        p_cpu = init(cfg, seed=seed, device="cpu")
+        d_cpu = init(draft_config(cfg), seed=seed + 1, device="cpu")
+        p_gpu, d_gpu = _to(p_cpu, dev), _to(d_cpu, dev)
+        line = {}
+        for mode in modes:
+            got, glp = _slot_parity_run(torch, cfg, dev, p_gpu, d_gpu, mode,
+                                        prompts, seed)
+            torch.cuda.synchronize()
+            want, wlp = _slot_parity_run(torch, cfg, "cpu", p_cpu, d_cpu,
+                                         mode, prompts, seed)
+            line[mode] = got == want
+            if glp is not None:
+                err = float((glp - wlp).abs().max())
+                line[mode + "_logprob_max_err"] = err
+                line[mode] = line[mode] and bool(torch.allclose(
+                    glp, wlp, atol=1e-4, rtol=1e-4))
+            if not line[mode]:
+                fail(f"slot_parity {name} {mode}: card {got} != CPU {want}")
+        if not cfg.is_moe and cfg.sliding_window is None:
+            key = seed + 21
+            done = ContinuousBatchingSampler(
+                cfg, num_slots=3, max_prompt_len=40, max_new_tokens=12,
+                temperature=1.0, device=dev).run(p_gpu, prompts, key)
+            eng = PagedGroupEngine(cfg, num_slots=3, page_size=8,
+                                   num_pages=0, max_prompt_len=40,
+                                   max_new_tokens=12, group_size=1,
+                                   temperature=1.0, device=dev)
+            paged = eng.serve(p_gpu, prompts, key)
+            torch.cuda.synchronize()
+            line["sampled_equal_paged_engine"] = \
+                _tokens(done) == _tokens(paged)
+            if not line["sampled_equal_paged_engine"]:
+                fail(f"slot_parity {name}: sampled {_tokens(done)} != "
+                     f"the paged engine's {_tokens(paged)}")
+            del eng
+        out[name] = line
+    return {"phase": "slot_parity", "prompt_lens": [5, 19, 33, 40],
+            "max_prompt_len": 40, "max_new": 12, "models": out}
+
+
+def slot_engines(torch, np, dev, seed: int, smi: str):
+    """Phase 21, one line a part: (a) cbatch_serve on full-width
+    llama3.2-3b and mla_dense in bf16; (b) spec_group_train, phase 6's
+    run on the SpecSampler (the group engine with spec k 4, prompt
+    lookup), 2 async iterations; (c) model_draft_paged; (d)
+    slot_parity."""
+    from repro_torch.configs import get_config
+    for cfg in (get_config("llama3.2-3b"), mla_dense_config()):
+        yield cbatch_serve(torch, np, dev, cfg, seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    yield {**train_full_width(torch, np, dev, seed, iterations=2,
+                              engine="group", spec_k=SPEC_K,
+                              phase="spec_group_train"), "card": smi}
+    gc.collect()
+    torch.cuda.empty_cache()
+    yield model_draft_paged(torch, np, dev, seed, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    yield slot_parity(torch, np, dev, seed)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4105,7 +4750,17 @@ def main() -> None:
                           ring_decode_setup)
     sampler_mla = setup_case(torch, timer, dev, gen, "bfloat16",
                              sampler_mla_setup)
-    cases += [cont_verify, sampler_dec, ring_dec, sampler_mla]
+    # the slot engines' verify routes at phase 21 (a)'s spec shapes (GQA
+    # and MLA) and on a rotated 8k ring of window + k + 1 slots
+    slot_verify = setup_case(torch, timer, dev, gen, "bfloat16",
+                             slot_verify_setup)
+    ring_verify = setup_case(torch, timer, dev, gen, "bfloat16",
+                             ring_verify_setup)
+    slot_mla_verify = {dtype: setup_case(torch, timer, dev, gen, dtype,
+                                         slot_mla_verify_setup)
+                       for dtype in ("bfloat16", "float32")}
+    cases += [cont_verify, sampler_dec, ring_dec, sampler_mla, slot_verify,
+              ring_verify, *slot_mla_verify.values()]
     # the MLA kernel at full-width heads
     mla = {name: mla_case(torch, timer, dev, gen, **kw)
            for name, kw in MLA_CASES.items()}
@@ -4236,6 +4891,17 @@ def main() -> None:
         sampler_lines.append(line)
     serves = [ln for ln in sampler_lines if ln["phase"] == "sampler_serve"]
     trains = [ln for ln in sampler_lines if ln["phase"] == "sampler_train"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 21: the dense-cache slot and spec engines
+    slot_lines, slot_t0 = {}, time.time()
+    for line in slot_engines(torch, np, dev, args.seed, smi):
+        emit(line)
+        slot_lines.setdefault(line["phase"], []).append(line)
+    slot_runs = {(ln["arch"], r["run"]): r
+                 for ln in slot_lines["cbatch_serve"] for r in ln["runs"]}
+    spec_train = slot_lines["spec_group_train"][0]
+    slot_s = time.time() - slot_t0
 
     # the training run's launches, each kernel timed at that run's shapes
     meta = {
@@ -4346,15 +5012,36 @@ def main() -> None:
         {"name": "verify_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_verify_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:138",
-         "launches": 0,
-         **{key: cont_verify[key] for key in timing + plan_keys}},
+         "launches": slot_runs["llama3.2-3b", "spec4"]["launches"][
+             "verify_attention"],
+         "launches_model_draft": slot_runs[
+             "llama3.2-3b", "spec4_model_draft"]["launches"][
+             "verify_attention"],
+         "launches_spec_group_train": spec_train["launches"][
+             "verify_attention"],
+         **{key: slot_verify[key] for key in timing + plan_keys},
+         "ring_8k": {key: ring_verify[key] for key in timing + plan_keys},
+         "phase2_l1060": {key: cont_verify[key]
+                          for key in timing + plan_keys}},
         {"name": "mla_decode_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_mla_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:277",
          "launches": serves[1]["launches"]["mla_decode_attention"],
-         **{key: sampler_mla[key] for key in timing + plan_keys}}]
+         "launches_cbatch_d1": slot_runs[
+             "deepseek-v2-lite-16b", "d1"]["launches"][
+             "mla_decode_attention"],
+         **{key: sampler_mla[key] for key in timing + plan_keys}},
+        {"name": "mla_verify_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_mla_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:301",
+         "launches": slot_runs["deepseek-v2-lite-16b", "spec4"][
+             "launches"]["mla_verify_attention"],
+         **{key: slot_mla_verify["bfloat16"][key]
+            for key in timing + plan_keys},
+         "f32": {key: slot_mla_verify["float32"][key]
+                 for key in timing + plan_keys}}]
     emit({"phase": "elapsed", "total_s": time.time() - STARTED,
-          "phases_end_at_s": PHASE_AT})
+          "phases_end_at_s": PHASE_AT, "slot_engines_s": slot_s})
     emit({"kernels": row})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

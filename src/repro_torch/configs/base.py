@@ -80,7 +80,7 @@ class ModelConfig:
 # exclusion list lives in exactly one place.
 # ---------------------------------------------------------------------
 
-ROLLOUT_ENGINES = ("group", "paged")
+ROLLOUT_ENGINES = ("group", "cbatch", "paged")
 SPEC_PLANE = "spec"
 PREFIX_PLANE = "prefix"
 TRAIN_PLANE = "train"
@@ -92,22 +92,20 @@ _NOT_YET = "not ported to PyTorch yet (ROADMAP.md Queue 1)"
 def engine_support(cfg: ModelConfig, engine: str, *,
                    rollout_engine: str = "paged") -> Tuple[bool, str]:
     """(supported, reason) for running ``cfg`` on ``engine`` in the port.
-    Both rollout engines, the paged engine and the group-at-a-time
-    Sampler, run GQA and MLA attention, each with a dense or a MoE
-    feed-forward and with or without a sliding window (the paged engine
-    reclaims out-of-window pages, the Sampler keeps a ring of the
-    window's length); every other family waits for later slices. The
-    spec and prefix planes ride the paged engine only (``rollout_engine``
-    names the engine a plane is asked for); training (the ``"train"``
-    plane, which ``build_pipeline`` asks) takes either engine's rollouts."""
+    The three rollout engines, the paged engine, the group-at-a-time
+    Sampler and the dense-slot continuous-batching engine (``cbatch``),
+    run GQA and MLA attention, each with a dense or a MoE feed-forward
+    and with or without a sliding window (the paged engine reclaims
+    out-of-window pages, the dense engines keep a ring of the window's
+    length); every other family waits for later slices. The spec plane
+    rides every engine (the SpecSampler on ``group``); the prefix plane
+    rides the paged engine only (``rollout_engine`` names the engine a
+    plane is asked for); training (the ``"train"`` plane, which
+    ``build_pipeline`` asks) takes any engine's rollouts."""
     if engine in _PLANES:
-        if rollout_engine == "group" and engine == SPEC_PLANE:
-            return False, ("spec decode on the group engine is the "
-                           "SpecSampler, " + _NOT_YET + " (item 2b); spec "
-                           "decode rides the paged engine")
-        if rollout_engine == "group" and engine == PREFIX_PLANE:
+        if rollout_engine != "paged" and engine == PREFIX_PLANE:
             return False, ("the radix prefix cache shares pages of the "
-                           "paged pool; the group engine's dense cache has "
+                           "paged pool; the dense engines' caches have "
                            "none")
         ok, reason = engine_support(cfg, "paged")
         if not ok:
@@ -116,6 +114,12 @@ def engine_support(cfg: ModelConfig, engine: str, *,
             if cfg.is_moe else ""
         windowed = cfg.sliding_window is not None
         if engine == SPEC_PLANE:
+            if rollout_engine != "paged":
+                win = (", incl. sliding-window (a ring of window + k + 1 "
+                       "slots)" if windowed else "")
+                return True, ("a rejected draft's dense-cache entries sit "
+                              "past the frontier until the next block "
+                              "overwrites them" + win + moe)
             win = (", incl. sliding-window (speculative pages respect "
                    "reclamation)" if windowed else "")
             return True, ("a rejected draft's speculative pages roll back "
@@ -151,6 +155,11 @@ def engine_support(cfg: ModelConfig, engine: str, *,
         rows = "(ckv, kr) latent rows" if cfg.use_mla else "per-head K/V rows"
         return True, (f"one dense cache of {rows} a row, decoded in lock "
                       f"step ({kind}, {ffn} FFN){win}")
+    if engine == "cbatch":
+        win = ("; sliding-window: a ring of the window's length a slot"
+               if cfg.sliding_window is not None else "")
+        return True, (f"fixed slot pool over one contiguous cache ({kind}, "
+                      f"{ffn} FFN){win}")
     win = ("; sliding-window: out-of-window pages are reclaimed to the "
            "freelist" if cfg.sliding_window is not None else "")
     if cfg.use_mla:
@@ -193,17 +202,24 @@ class RLConfig:
     num_inference_instances: int = 4   # train:rollout ratio (paper: 1:4)
     # "paged" (token-level continuous batching over the page pool) or
     # "group" (the group-at-a-time Sampler over a dense cache, the only
-    # engine of the async_offpolicy baseline). The JAX package defaults to
-    # "group"; the port keeps "paged", its main path
+    # engine of the async_offpolicy baseline; with spec_decode the
+    # SpecSampler); "cbatch" trains as "group" does, as in the JAX
+    # package. The JAX package defaults to "group"; the port keeps
+    # "paged", its main path
     rollout_engine: str = "paged"
     cbatch_slots: int = 8              # decode slots per paged instance
     kv_page_size: int = 16             # tokens per KV page
     kv_pages: int = 0                  # physical pages (0 = auto-size)
-    # speculative decode on the paged engine: draft spec_k tokens with the
-    # prompt-lookup provider, verify them in ONE k+1-token forward, accept
-    # by rejection sampling (distribution-exact: Proposition 1 holds)
+    # speculative decode (the paged engine, or the SpecSampler on the
+    # group engine): draft spec_k tokens, verify them in ONE k+1-token
+    # forward, accept by rejection sampling (distribution-exact:
+    # Proposition 1 holds)
     spec_decode: bool = False
     spec_k: int = 4                    # drafted tokens per verify step
+    # draft provider: "prompt_lookup" (n-gram reuse of prompt/response
+    # tokens, no extra model) or "model" (a small resident draft model)
+    spec_draft: str = "prompt_lookup"
+    spec_ngram: int = 3                # longest n-gram the lookup tries
     # radix prefix cache on the paged engine: prompts sharing a token-span
     # prefix share its cached pages and prefill only their suffix
     prefix_cache: bool = False

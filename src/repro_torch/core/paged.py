@@ -69,9 +69,13 @@ host arrays. On the CPU there is no stream (``stream`` is None).
 Two planes layer on the pool:
 
   * ``spec_k > 0``, speculative decode (``spec/``): each step drafts k
-    tokens per row, pre-allocates the block's speculative pages against
-    the row's credit, runs ONE k+1-token verify forward through the
-    paged-verify kernel (one graph replay on the card), commits 1..k+1
+    tokens per row (prompt lookup, or with ``spec_draft="model"`` a
+    resident draft model over a dense cache of its own, whose calls run
+    eagerly on the engine's stream before the verify step's inputs are
+    built, never inside its graph), pre-allocates the block's
+    speculative pages against the row's credit, runs ONE k+1-token
+    verify forward through the paged-verify kernel (one graph replay on
+    the card), commits 1..k+1
     tokens per row by rejection sampling (``_spec_step``), and rolls pages
     that hold only rejected drafts back to the freelist
     (``_rollback_row``). Spec engines drain every verify step, whatever
@@ -108,7 +112,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.device import engine_stream, to_device
+from repro_torch.device import engine_stream, on_engine_stream, to_device
 from repro_torch.configs.base import ModelConfig, require_engine_support
 from repro_torch.core.cbatch import Completed, SlotScheduler
 from repro_torch.core.graphs import StaticInputs, StepGraph
@@ -118,10 +122,9 @@ from repro_torch.models import forward_hidden, init_caches, init_paged_caches
 from repro_torch.models.attention import INVALID_POS, cache_streams
 from repro_torch.models.layers import lm_head_weight
 from repro_torch.rl.rollout import (Key, RolloutBatch, _sample_token_rows,
-                                    _tree_leaves, row_seed,
-                                    sampled_token_logprob)
-from repro_torch.spec import (PromptLookupDraft, commit_block, pack_row_block,
-                              truncate_commit, verify_block)
+                                    row_seed, sampled_token_logprob)
+from repro_torch.spec import (commit_block, make_draft_provider,
+                              pack_row_block, truncate_commit, verify_block)
 
 NULL_PAGE = 0
 TRASH_PAGE = 1
@@ -309,8 +312,9 @@ class PagedGroupEngine:
                  group_size: int, temperature: float = 1.0, top_p: float = 1.0,
                  eos_id: int = Tokenizer.EOS, pad_id: int = Tokenizer.PAD,
                  capture_logprobs: bool = True, spec_k: int = 0,
+                 spec_draft: str = "prompt_lookup", spec_ngram: int = 3,
                  prefix_cache: bool = False, drain_interval: int = 1,
-                 device="cuda"):
+                 seed: int = 0, device="cuda"):
         if num_slots < 1 or page_size < 1:
             raise ValueError(f"paged engine needs num_slots >= 1 and "
                              f"page_size >= 1, got {num_slots}/{page_size}")
@@ -320,13 +324,19 @@ class PagedGroupEngine:
         require_engine_support(cfg, "paged")
         self.drain = drain_interval
         self.spec_k = spec_k
-        if spec_k:
-            require_engine_support(cfg, "spec")
-            self._draft = PromptLookupDraft(num_slots)
-        if prefix_cache:
-            require_engine_support(cfg, "prefix")
         self.cfg = cfg
         self.device = _device.resolve(device)
+        if spec_k:
+            require_engine_support(cfg, "spec")
+            # the draft model (spec_draft "model", its weights from
+            # ``seed``) keeps its own weights: set_params leaves them be
+            self._draft = make_draft_provider(
+                spec_draft, cfg, num_slots, spec_k=spec_k, ngram=spec_ngram,
+                max_prompt_len=max_prompt_len,
+                max_new_tokens=max_new_tokens, pad_id=pad_id, seed=seed,
+                device=self.device)
+        if prefix_cache:
+            require_engine_support(cfg, "prefix")
         # every device op of the engine runs on this stream (the module
         # docstring); None on the CPU
         self.stream = engine_stream(self.device)
@@ -743,21 +753,12 @@ class PagedGroupEngine:
                 self.prefix_evicted_pages += self.alloc.release(
                     self.radix.pages())
                 self.radix = RadixCache(self.page, self.alloc)
-            if self.stream is None:
-                return self._load_params(params)
-            caller = torch.cuda.current_stream(self.device)
             # params were written on the caller's stream (the trainer's,
-            # the weight-plane's unpack): the engine reads them after it
-            self.stream.wait_stream(caller)
-            with torch.cuda.stream(self.stream):
-                own = self._load_params(params)
-            # the caller may free params once this returns (the store drops
-            # a landed tree): no reuse of their memory before the copy ran
-            for leaf in _tree_leaves(params):
-                leaf.record_stream(self.stream)
-            # the caller reads the returned tree after the copy
-            caller.wait_stream(self.stream)
-            return own
+            # the weight-plane's unpack), which may free them once this
+            # returns (the store drops a landed tree); the caller reads
+            # the returned tree after the copy
+            return on_engine_stream(self.stream, params,
+                                    lambda: self._load_params(params))
 
     def _load_params(self, params) -> dict:
         """``set_params``' device work, on the engine's stream on the

@@ -4,13 +4,14 @@ asked for and absent; and the rollout engines' CUDA stream on each card."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, TypeVar
 
 import torch
 
 # the rollout engines' CUDA stream on each card, made at first use
 _STREAMS: Dict[int, torch.cuda.Stream] = {}
 _STREAMS_LOCK = threading.Lock()
+_R = TypeVar("_R")
 
 
 def resolve(device="cuda") -> torch.device:
@@ -45,3 +46,36 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+def tree_leaves(tree: dict):
+    """The leaves of a nested dict of tensors (a parameter tree)."""
+    for v in tree.values():
+        yield from (tree_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def on_engine_stream(stream: Optional[torch.cuda.Stream], params: dict,
+                     fn: Callable[[], _R]) -> _R:
+    """``fn()`` on a rollout engine's ``stream``, with the edges every
+    engine keeps to its caller (on the CPU, where ``stream`` is None,
+    just ``fn()``): the stream first waits for the caller's, where the
+    weights ``params`` were written; every leaf of ``params`` is kept from
+    reuse until the stream's kernels have run (``record_stream``: a store
+    may drop its last reference to a tree mid-call, at an off-policy
+    flip); the caller's stream then waits for the engine's, and every
+    tensor of a tuple result is kept from reuse until the caller's work on
+    it has run. Returns what ``fn`` returned."""
+    if stream is None:
+        return fn()
+    caller = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(caller)
+    with torch.cuda.stream(stream):
+        out = fn()
+    for leaf in tree_leaves(params):
+        leaf.record_stream(stream)
+    caller.wait_stream(stream)
+    if isinstance(out, tuple):
+        for t in out:
+            if isinstance(t, torch.Tensor):
+                t.record_stream(caller)
+    return out

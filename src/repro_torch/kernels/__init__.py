@@ -21,7 +21,7 @@ LAUNCHES = {"spa_attention": 0, "spa_attention_bwd": 0,
             # the contiguous-cache wrappers, which launch the paged
             # kernels on a one-page-per-row view
             "decode_attention": 0, "verify_attention": 0,
-            "mla_decode_attention": 0}
+            "mla_decode_attention": 0, "mla_verify_attention": 0}
 # the rollout producer threads and the trainer launch kernels concurrently;
 # ``d[k] += 1`` is not atomic across threads, so counts go through the lock
 _lock = threading.Lock()

@@ -2,7 +2,7 @@
 (decode) or S queries per row, each masked by its own position (the
 spec-decode verify block and the radix cache's suffix prefill).
 
-Three CUDA sources serve seven wrappers:
+Three CUDA sources serve eight wrappers:
 
   * ``paged_decode_attention`` launches ``csrc/paged_decode_attention.cu``
     (one query per row over the page pool): the Split-L kernel of
@@ -20,8 +20,9 @@ Three CUDA sources serve seven wrappers:
     (B, L, Hkv, D) cache and launch the same two kernels through a
     zero-copy view of it as a pool: one page of length L per row, the
     positions as that page's positions, and row b's table [b];
-    ``mla_decode_attention`` does the same for the MLA kernel over a
-    contiguous latent cache (B, L, r) / (B, L, rd);
+    ``mla_decode_attention`` (one query per row) and
+    ``mla_verify_attention`` (S per row) do the same for the MLA kernel
+    over a contiguous latent cache (B, L, r) / (B, L, rd);
   * ``paged_mla_decode_attention`` (one query per row) and
     ``paged_mla_verify_attention`` (S per row) launch
     ``csrc/paged_mla_attention.cu``: absorbed MLA attention over the
@@ -623,3 +624,33 @@ def mla_decode_attention(q, ckv, kr, kv_pos, q_pos, *, scale: float,
         raise ValueError(f"{name}: q must be (B, H, r + rd) and q_pos (B,)")
     return _launch_mla(name, q, *_as_pool(ckv, kr, kv_pos), q_pos, scale,
                        window, 1)
+
+
+def mla_verify_attention_plain(q, ckv, kr, kv_pos, q_pos, *, scale: float,
+                               window: Optional[int] = None):
+    """Plain version: the paged plain version on the one-page-per-row
+    view of the contiguous latent cache."""
+    return paged_mla_verify_attention_plain(q, *_as_pool(ckv, kr, kv_pos),
+                                            q_pos, scale=scale, window=window)
+
+
+def mla_verify_attention(q, ckv, kr, kv_pos, q_pos, *, scale: float,
+                         window: Optional[int] = None):
+    """Absorbed MLA attention of S tokens per row over a contiguous latent
+    cache (the dense spec engines' verify block, the draft model's feed).
+    q: (B, S, H, r + rd), the S tokens' latents already written into the
+    cache; ckv: (B, L, r); kr: (B, L, rd); kv_pos: (B, L) int32; q_pos:
+    (B, S) int32, each token's own position. Returns (B, S, H, r). CUDA
+    tensors launch the paged MLA kernel on the cache viewed as a pool of B
+    pages of length L, row b's table [b] (counted as
+    ``mla_verify_attention``); CPU tensors run the paged plain version on
+    the same view."""
+    name = "mla_verify_attention"
+    if not _device_route(name, q):
+        return mla_verify_attention_plain(q, ckv, kr, kv_pos, q_pos,
+                                          scale=scale, window=window)
+    if q.dim() != 4 or q_pos.dim() != 2:
+        raise ValueError(f"{name}: q must be (B, S, H, r + rd) and q_pos "
+                         f"(B, S)")
+    return _launch_mla(name, q, *_as_pool(ckv, kr, kv_pos), q_pos, scale,
+                       window, q.shape[1])

@@ -7,7 +7,8 @@ explicit trace), steps the engine, and records every streamed token's
 time, from which the latency metrics serving systems quote are computed —
 time-to-first-token (TTFT) and time-per-output-token (TPOT), p50/p99.
 
-``--spec`` turns on speculative decode (prompt-lookup drafts verified in
+``--spec`` turns on speculative decode (prompt-lookup drafts, or with
+``--spec-draft model`` a resident half-depth draft model's, verified in
 one k+1-token forward), ``--prefix-cache`` the radix prefix cache, and
 ``--shared-system N`` serves N requests that share one system prompt
 through the cache (``serve_shared``).
@@ -16,7 +17,8 @@ Usage (full-width llama3.2-3b on the GPU; ``--device cpu --reduced`` for
 the 2-layer f32 variant on the CPU):
     PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
         --num-requests 8 --max-new 24 --slots 4 [--rate 4.0] \\
-        [--spec --spec-k 4] [--prefix-cache] [--shared-system 8]
+        [--spec --spec-k 4 [--spec-draft model]] [--prefix-cache] \\
+        [--shared-system 8]
     PYTHONPATH=src python -m repro_torch.launch.serve --engine fixed \\
         --num-requests 8 --max-new 24
 (the paged engine is the port's default; the JAX package's is ``fixed``)
@@ -192,14 +194,17 @@ def serve_batch(cfg, prompts, *, max_prompt_len: int, max_new: int,
 
 def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
                        num_slots: int = 4, page_size: int = 16,
-                       temperature: float = 0.7, spec_k: int = 0,
+                       temperature: float = 0.7, seed: int = 0,
+                       spec_k: int = 0, spec_draft: str = "prompt_lookup",
                        prefix_cache: bool = False, drain_interval: int = 1,
                        device="cuda"):
     """One serving-shaped paged engine (group_size=1, no logprob capture):
     enough pages for every slot to hold a full prompt + response, plus
     (with the prefix cache) one prompt's pages of headroom so a cached
     prompt can stay resident. ``drain_interval`` D > 1 decodes D steps a
-    block: a request's tokens then arrive in bursts of up to D."""
+    block: a request's tokens then arrive in bursts of up to D.
+    ``spec_draft`` picks the spec plane's draft provider (a draft model's
+    weights are made from ``seed``)."""
     if num_slots < 1 or page_size < 1:
         raise ValueError(f"serving needs num_slots >= 1 and "
                          f"page_size >= 1, got {num_slots}/{page_size}")
@@ -213,8 +218,10 @@ def build_paged_engine(cfg, *, max_prompt_len: int, max_new: int,
                             max_new_tokens=max_new, group_size=1,
                             temperature=temperature,
                             capture_logprobs=False,   # serving: no consumer
-                            spec_k=spec_k, prefix_cache=prefix_cache,
-                            drain_interval=drain_interval, device=device)
+                            spec_k=spec_k, spec_draft=spec_draft,
+                            prefix_cache=prefix_cache,
+                            drain_interval=drain_interval, seed=seed,
+                            device=device)
 
 
 def serving_stats(eng, generated_tokens: int) -> dict:
@@ -242,15 +249,16 @@ def serving_stats(eng, generated_tokens: int) -> dict:
 def serve_paged(cfg, prompts, *, max_prompt_len: int, max_new: int,
                 num_slots: int = 4, page_size: int = 16,
                 temperature: float = 0.7, seed: int = 0, spec_k: int = 0,
-                prefix_cache: bool = False, drain_interval: int = 1,
-                device="cuda", params=None):
+                spec_draft: str = "prompt_lookup", prefix_cache: bool = False,
+                drain_interval: int = 1, device="cuda", params=None):
     """Serve independent requests through the paged engine as one batch
     (each request its own 1-row group); returns (completions in completion
     order, stats)."""
     eng = build_paged_engine(cfg, max_prompt_len=max_prompt_len,
                              max_new=max_new, num_slots=num_slots,
                              page_size=page_size, temperature=temperature,
-                             spec_k=spec_k, prefix_cache=prefix_cache,
+                             seed=seed, spec_k=spec_k, spec_draft=spec_draft,
+                             prefix_cache=prefix_cache,
                              drain_interval=drain_interval, device=device)
     if params is None:
         params = init(cfg, seed=seed, device=eng.device)
@@ -266,7 +274,8 @@ def serve_paged(cfg, prompts, *, max_prompt_len: int, max_new: int,
 
 def serve_shared(cfg, system_prompt, suffixes, *, max_prompt_len: int,
                  max_new: int, page_size: int = 16, temperature: float = 0.7,
-                 seed: int = 0, spec_k: int = 0, device="cuda",
+                 seed: int = 0, spec_k: int = 0,
+                 spec_draft: str = "prompt_lookup", device="cuda",
                  params=None, engine=None):
     """Serve N requests that share one system prompt through the radix
     prefix cache: each request submits its FULL prompt (system + its own
@@ -282,7 +291,8 @@ def serve_shared(cfg, system_prompt, suffixes, *, max_prompt_len: int,
         engine = build_paged_engine(
             cfg, max_prompt_len=max(max_prompt_len, full), max_new=max_new,
             num_slots=N, page_size=page_size, temperature=temperature,
-            spec_k=spec_k, prefix_cache=True, device=device)
+            seed=seed, spec_k=spec_k, spec_draft=spec_draft,
+            prefix_cache=True, device=device)
     if engine.radix is None:
         raise ValueError("serve_shared needs an engine built with "
                          "prefix_cache=True")
@@ -315,7 +325,8 @@ def serve_shared(cfg, system_prompt, suffixes, *, max_prompt_len: int,
 def serve_requests(cfg, prompts, *, max_prompt_len: int, max_new: int,
                    num_slots: int = 4, page_size: int = 16,
                    temperature: float = 0.7, seed: int = 0, rate: float = 0.0,
-                   spec_k: int = 0, prefix_cache: bool = False,
+                   spec_k: int = 0, spec_draft: str = "prompt_lookup",
+                   prefix_cache: bool = False,
                    arrivals: Optional[np.ndarray] = None, params=None,
                    engine=None, device="cuda"):
     """Serve ``prompts`` as a TIMED request stream through the
@@ -326,8 +337,8 @@ def serve_requests(cfg, prompts, *, max_prompt_len: int, max_new: int,
         engine = build_paged_engine(
             cfg, max_prompt_len=max_prompt_len, max_new=max_new,
             num_slots=num_slots, page_size=page_size,
-            temperature=temperature, spec_k=spec_k,
-            prefix_cache=prefix_cache, device=device)
+            temperature=temperature, seed=seed, spec_k=spec_k,
+            spec_draft=spec_draft, prefix_cache=prefix_cache, device=device)
     if params is None:
         params = init(cfg, seed=seed, device=engine.device)
     engine.set_params(params)
@@ -373,6 +384,10 @@ def main(argv: Optional[list] = None) -> None:
                          "acceptance rate)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens per verify step")
+    ap.add_argument("--spec-draft", default="prompt_lookup",
+                    choices=["prompt_lookup", "model"],
+                    help="draft provider: n-gram prompt lookup (no extra "
+                         "model) or a small resident draft model")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache over the paged pool: requests "
                          "sharing a token prefix share its pages")
@@ -393,7 +408,7 @@ def main(argv: Optional[list] = None) -> None:
         raise SystemExit("--spec, --prefix-cache, --rate and "
                          "--shared-system ride the paged engine; drop "
                          "--engine fixed")
-    plane = dict(spec_k=spec_k)
+    plane = dict(spec_k=spec_k, spec_draft=args.spec_draft)
     if args.shared_system:
         # the radix tree serves every request's system pages from cache
         # after the first admission

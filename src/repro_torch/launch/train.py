@@ -11,7 +11,9 @@ Usage (full-width llama3.2-3b cut to 12 layers, f32, on the GPU;
 ``--arch deepseek-v2-lite-16b --layers 3`` trains the MoE model, its
 dense prelude and 2 MoE layers, on one card; ``--rollout-engine group``
 draws the rollouts from the group-at-a-time Sampler, the only engine of
-``--mode async_offpolicy``, the off-policy baseline):
+``--mode async_offpolicy``, the off-policy baseline, and with ``--spec``
+from the SpecSampler; ``--spec-draft model`` drafts with a resident
+half-depth model instead of prompt lookup):
     PYTHONPATH=src python -m repro_torch.launch.train --layers 12 \\
         --mode async --iterations 3 --batch-prompts 4 --group-size 8 \\
         --spa --wire-dtype bfloat16
@@ -39,6 +41,7 @@ from repro_torch.data.tokenizer import Tokenizer
 from repro_torch.models import init
 from repro_torch.rl.reward import RuleBasedReward
 from repro_torch.rl.rollout import Sampler
+from repro_torch.spec.sampler import SpecSampler
 from repro_torch.transfer.service import WeightTransferService
 
 
@@ -47,13 +50,19 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
     """Returns (scheduler, components dict). With ``scripted_fn`` the
     inference instances return scripted rollouts; otherwise each runs the
     rollout engine ``rl.rollout_engine``: the paged engine (one an
-    instance) or the group-at-a-time Sampler (one, shared: it keeps no
-    state between calls). ``params`` (a tree in the model's layout, e.g.
-    converted from the JAX package) replaces the random weights made from
-    ``seed``. Runs on ``device`` (CUDA unless the caller asks for the
-    CPU); refuses a config the port cannot train (``engine_support``'s
-    train plane) or roll out on the chosen engine, and the off-policy
-    baseline on the paged engine, which needs quiescence at a flip."""
+    instance) or, as in the JAX package for every other engine name
+    ("group", "cbatch"), the group-at-a-time Sampler (one, shared by the
+    instances: it keeps no state between calls). With ``rl.spec_decode``
+    "group" builds a SpecSampler for each instance instead (it keeps its
+    draft providers and stats between calls, and two instances' calls
+    may run at once); "cbatch" refuses spec decode, which the JAX package
+    would drop. ``components["sampler"]`` is the first instance's.
+    ``params`` (a tree in the model's layout, e.g. converted from the
+    JAX package) replaces the random weights made from ``seed``. Runs on
+    ``device`` (CUDA unless the caller asks for the CPU); refuses a
+    config the port cannot train (``engine_support``'s train plane) or
+    roll out on the chosen engine, and the off-policy baseline on the
+    paged engine, which needs quiescence at a flip."""
     # repro: allow(support-matrix): the train plane is declared in the port's matrix (src/repro_torch/configs/base.py TRAIN_PLANE); the checker reads the JAX package's
     require_engine_support(cfg, "train")
     dev = _device.resolve(device)
@@ -64,24 +73,43 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
         params = init(cfg, seed=seed, device=dev)
     tri = TriModelState.create(params)
 
-    sampler = None
-    if scripted_fn is None and rl.rollout_engine == "group":
-        if rl.spec_decode:
-            require_engine_support(cfg, "spec", rollout_engine="group")
+    group = scripted_fn is None and rl.rollout_engine in ("group", "cbatch")
+    shared = None
+    if group:
         if rl.prefix_cache:
-            require_engine_support(cfg, "prefix", rollout_engine="group")
+            require_engine_support(cfg, "prefix",
+                                   rollout_engine=rl.rollout_engine)
         if rl.decode_drain_interval != 1:
             raise ValueError("decode_drain_interval is the paged engine's "
                              "decode block; the group Sampler decodes one "
                              "step a forward")
-        sampler = Sampler(cfg, rl.max_prompt_len, rl.max_response_len,
-                          temperature=rl.temperature, top_p=rl.top_p,
-                          capture_logprobs=rl.capture_logprobs, device=dev)
+        if rl.spec_decode and rl.rollout_engine == "cbatch":
+            raise ValueError("rollout_engine='cbatch' trains on the group "
+                             "Sampler, which has no spec decode; use "
+                             "rollout_engine='group' (the SpecSampler)")
+        if rl.spec_decode:
+            # k+1 tokens a target forward; greedy token-identical, sampled
+            # distribution-exact, logprobs captured from the verify pass
+            require_engine_support(cfg, "spec", rollout_engine="group")
+        else:
+            shared = Sampler(cfg, rl.max_prompt_len, rl.max_response_len,
+                             temperature=rl.temperature, top_p=rl.top_p,
+                             capture_logprobs=rl.capture_logprobs,
+                             device=dev)
     elif scripted_fn is None and rl.rollout_engine != "paged":
         raise KeyError(f"unknown rollout engine {rl.rollout_engine!r}")
 
+    def group_sampler():
+        if not group or shared is not None:
+            return shared
+        return SpecSampler(
+            cfg, rl.max_prompt_len, rl.max_response_len, spec_k=rl.spec_k,
+            draft=rl.spec_draft, ngram=rl.spec_ngram,
+            temperature=rl.temperature, top_p=rl.top_p,
+            capture_logprobs=rl.capture_logprobs, seed=seed, device=dev)
+
     def paged_engine() -> Optional[PagedGroupEngine]:
-        if scripted_fn is not None or sampler is not None:
+        if scripted_fn is not None or group:
             return None
         if rl.mode == "async_offpolicy":
             raise ValueError(
@@ -95,10 +123,12 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
             temperature=rl.temperature, top_p=rl.top_p,
             capture_logprobs=rl.capture_logprobs,
             spec_k=rl.spec_k if rl.spec_decode else 0,
+            spec_draft=rl.spec_draft, spec_ngram=rl.spec_ngram,
             prefix_cache=rl.prefix_cache,
-            drain_interval=rl.decode_drain_interval, device=dev)
+            drain_interval=rl.decode_drain_interval, seed=seed, device=dev)
 
-    instances = [InferenceInstance(i, cfg, sampler, scripted_fn=scripted_fn,
+    instances = [InferenceInstance(i, cfg, group_sampler(),
+                                   scripted_fn=scripted_fn,
                                    paged_engine=paged_engine())
                  for i in range(rl.num_inference_instances)]
     pool = InferencePool(instances)
@@ -114,7 +144,7 @@ def build_pipeline(cfg, rl: RLConfig, *, seed: int = 0, prompt_pad: int = 0,
     return sched, {"tokenizer": tok, "task": task, "loader": loader,
                    "pool": pool, "queue": queue, "generator": gen,
                    "tri": tri, "transfer": transfer, "device": dev,
-                   "sampler": sampler}
+                   "sampler": instances[0].sampler if instances else None}
 
 
 def main(argv=None) -> None:
@@ -151,6 +181,10 @@ def main(argv=None) -> None:
                          "verify them in one k+1-token forward)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens per verify step")
+    ap.add_argument("--spec-draft", default="prompt_lookup",
+                    choices=["prompt_lookup", "model"],
+                    help="draft provider: n-gram prompt lookup (no extra "
+                         "model) or a small resident draft model")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache on the paged rollout engine: "
                          "prompts sharing a token prefix share its pages "
@@ -179,7 +213,8 @@ def main(argv=None) -> None:
         max_response_len=args.max_response_len,
         shared_prompt_attention=args.spa,
         transfer_wire_dtype=args.wire_dtype, spec_decode=args.spec,
-        spec_k=args.spec_k, prefix_cache=args.prefix_cache,
+        spec_k=args.spec_k, spec_draft=args.spec_draft,
+        prefix_cache=args.prefix_cache,
         decode_drain_interval=args.drain_interval, seed=args.seed)
     sched, _ = build_pipeline(cfg, rl, seed=args.seed, device=args.device)
     t0 = time.time()
@@ -189,7 +224,9 @@ def main(argv=None) -> None:
     print(f"{cfg.name} ({cfg.num_layers} layers, float32) on "
           f"{args.device} mode={args.mode} "
           f"engine={args.rollout_engine} spa={args.spa} "
-          f"spec={args.spec} prefix_cache={args.prefix_cache} "
+          f"spec={args.spec}"
+          + (f" ({args.spec_draft} draft)" if args.spec else "")
+          + f" prefix_cache={args.prefix_cache} "
           f"drain_interval={args.drain_interval}: "
           f"{args.iterations} iterations, {total} tokens, {wall:.1f}s wall, "
           f"TPSPD={total / wall:.1f}")

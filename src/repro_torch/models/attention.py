@@ -6,12 +6,14 @@ q_seg``; padding uses seg -1 and invalid cache slots pos ``INVALID_POS``.
 
 Which kernel runs is decided by the branch alone, never by a config flag:
 a prefill or training forward (dense path) calls the SPA wrapper; one
-token per row against a dense (or ring) cache, the group Sampler's decode
-step, calls the contiguous decode wrapper; against the paged pool, one
-token per row calls the paged-decode wrapper and S > 1 tokens per row (the
-spec verify block, the radix cache's suffix prefill) the paged-verify
-wrapper. Each wrapper launches its CUDA kernel for CUDA
-tensors and runs its plain version for CPU tensors.
+token per row against a dense (or ring) cache, the dense engines' decode
+step, calls the contiguous decode wrapper; S > 1 tokens per row against
+a dense cache at per-row (B,) offsets (the dense spec engines' verify
+block, the draft model's feed; JAX's ``_is_verify``) the contiguous verify
+wrapper; against the paged pool, one token per row calls the paged-decode
+wrapper and S > 1 tokens per row (the spec verify block, the radix cache's
+suffix prefill) the paged-verify wrapper. Each wrapper launches its CUDA
+kernel for CUDA tensors and runs its plain version for CPU tensors.
 
 MLA (DeepSeek-V2) caches one latent row per token, ``(ckv, kr)``, instead
 of per-head K/V. Against the paged pool it attends in the latent space
@@ -19,8 +21,9 @@ of per-head K/V. Against the paged pool it attends in the latent space
 the paged MLA wrappers, S == 1 through ``paged_mla_decode_attention`` and
 S > 1 (the spec verify block, the radix cache's suffix prefill) through
 ``paged_mla_verify_attention``; against a dense (or ring) latent cache,
-one token per row through ``mla_decode_attention``, the same kernel on a
-one-page-per-row view. Prefill and training expand per-head K/V
+one token per row through ``mla_decode_attention`` and a verify block
+through ``mla_verify_attention``, the same kernel on a one-page-per-row
+view. Prefill and training expand per-head K/V
 from the latent and run plain PyTorch attention, as the JAX package does
 (``_mla_expanded``); training differentiates it with autograd.
 
@@ -37,10 +40,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   mla_decode_attention,
+                                                  mla_verify_attention,
                                                   paged_decode_attention,
                                                   paged_mla_decode_attention,
                                                   paged_mla_verify_attention,
-                                                  paged_verify_attention)
+                                                  paged_verify_attention,
+                                                  verify_attention)
 from repro_torch.kernels.spa_attention import (allow_mask, chunked_attention,
                                                spa_attention)
 from repro_torch.models.layers import apply_rope, rmsnorm
@@ -71,9 +76,11 @@ class DenseCacheBackend:
     """Contiguous per-row cache of ``length`` slots; the sliding-window
     RING buffer when ``cfg.sliding_window`` is set (write index ``offset
     % length``; a prefill of S > length tokens ring-writes its trailing
-    window, token i in slot ``i % length``), as the JAX backend. The group
-    Sampler decodes over one; the paged engine runs each prompt's prefill
-    over one (never a ring) and splices its K/V into the page pool.
+    window, token i in slot ``i % length``), as the JAX backend. The dense
+    engines (the group Sampler, the SpecSampler, the slot engine and the
+    draft model) decode over one; the paged engine runs each prompt's
+    prefill over one (never a ring) and splices its K/V into the page
+    pool.
 
     A padding token (segment -1) is stored at pos ``INVALID_POS``: the
     decode kernels mask by position alone, where the JAX package masks
@@ -108,20 +115,52 @@ class DenseCacheBackend:
         return state
 
     def write_decode(self, state: dict, vals: tuple, positions, segments,
-                     cache_offset: int) -> dict:
-        """In-place write of S tokens per row (vals (B, S, *shp)) at the
-        scalar offset of a lock-step engine: row b's token j lands in slot
-        ``cache_offset + j`` (mod L on a ring). The per-row (B,) offsets of
-        the slot engines are not ported."""
+                     cache_offset) -> dict:
+        """In-place write of S tokens per row (vals (B, S, *shp)): at the
+        scalar (int) offset of a lock-step engine, row b's token j lands in
+        slot ``cache_offset + j``; at the per-row (B,) int tensor of start
+        offsets of a slot engine, in slot ``cache_offset[b] + j`` (one
+        indexed write per stream). Both wrap mod L on a ring. A scalar
+        write past the end of a plain cache raises; per-row offsets are not
+        read back (that would wait for the device), so the engines keep
+        them in range, as JAX's scatter needs too. An idle slot of the
+        slot engine writes its pad at offset 0, over whatever its finished
+        row left there, as in JAX: no live row reads that slot again
+        before a prefill rewrites it."""
+        if isinstance(cache_offset, torch.Tensor):
+            if cache_offset.dim() != 1:
+                raise TypeError("per-row write offsets must be a (B,) "
+                                "tensor")
+            return self._store_rows(state, cache_offset, vals, positions,
+                                    segments)
         if not isinstance(cache_offset, int):
-            raise TypeError("a dense cache takes one scalar (int) write "
-                            "offset for every row")
+            raise TypeError("a dense cache takes a scalar (int) write "
+                            "offset or a (B,) tensor of per-row offsets")
         S = positions.shape[1]
         idx = cache_offset % self.L if self.ring else cache_offset
         if idx + S > self.L:
             raise ValueError(f"write of {S} tokens at slot {idx} overruns "
                              f"the {self.L}-slot cache")
         return self._store(state, idx, vals, positions, segments)
+
+    def _store_rows(self, state: dict, offsets: torch.Tensor, vals: tuple,
+                    positions, segments) -> dict:
+        """Row b's S tokens into slots ``offsets[b] + j`` (mod L on a
+        ring), padding at pos ``INVALID_POS``."""
+        B, S = positions.shape
+        dev = positions.device
+        idx = offsets.to(device=dev, dtype=torch.int64)[:, None] \
+            + torch.arange(S, dtype=torch.int64, device=dev)[None]
+        if self.ring:
+            idx = idx % self.L
+        rows = torch.arange(B, dtype=torch.int64, device=dev)[:, None] \
+            .expand(B, S)
+        for (n, _), val in zip(cache_streams(self.cfg), vals):
+            state[n][rows, idx] = val.to(state[n].dtype)
+        state["pos"][rows, idx] = torch.where(segments < 0, INVALID_POS,
+                                              positions)
+        state["seg"][rows, idx] = segments
+        return state
 
     def write_prefill(self, state: dict, vals: tuple, positions,
                       segments) -> dict:
@@ -193,6 +232,15 @@ def _paged_gqa_decode(cfg: ModelConfig, q, k, v, positions, cache,
     return out, cache
 
 
+def _is_verify(S: int, cache_offset) -> bool:
+    """A multi-token DECODE-side write (the dense spec engines' k+1-token
+    verify block, the draft model's feed) rather than a prefill: every
+    prefill passes a scalar offset (0), the verify engines per-row (B,)
+    start offsets (JAX's ``_is_verify``)."""
+    return S > 1 and isinstance(cache_offset, torch.Tensor) \
+        and cache_offset.dim() >= 1
+
+
 def _dense_prefill(cfg: ModelConfig, vals: tuple, positions, segments,
                    cache, cache_offset) -> None:
     """A prefill (S > 1) into a dense cache, filled from offset 0. The
@@ -205,17 +253,18 @@ def _dense_prefill(cfg: ModelConfig, vals: tuple, positions, segments,
         return
     if not (cache_offset is None or (isinstance(cache_offset, int)
                                      and cache_offset == 0)):
-        raise ValueError("a dense cache is filled from offset 0 (prefill); "
-                         "a multi-token write at another offset is the "
-                         "spec verify block, not ported to a dense cache")
+        raise ValueError("a prefill fills a dense cache from offset 0; a "
+                         "multi-token write elsewhere is a verify block, "
+                         "which takes per-row (B,) tensor offsets")
     DenseCacheBackend(cfg, cache["pos"].shape[1]).write_prefill(
         cache, vals, positions, segments)
 
 
 def _dense_decode_write(cfg: ModelConfig, vals: tuple, positions, segments,
                         cache, cache_offset) -> None:
-    """One token per row into a dense (or ring) cache at the scalar
-    offset (a prompt of one token is written at 0, as in JAX)."""
+    """S tokens per row into a dense (or ring) cache at the scalar offset
+    (a prompt of one token is written at 0, as in JAX) or at per-row (B,)
+    offsets."""
     DenseCacheBackend(cfg, cache["pos"].shape[1]).write_decode(
         cache, vals, positions, segments,
         0 if cache_offset is None else cache_offset)
@@ -226,9 +275,12 @@ def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
                   page_table=None):
     """x: (B, S, d). Prefill/training when ``cache`` is None or a dense
     cache filled from offset 0 (S > 1); one token per row against a dense
-    (or ring) cache at a scalar offset (the Sampler's decode step); S
-    tokens per row against the paged pool when ``cache`` is one (with (B,)
-    or (B, S) flat write slots and a page table).
+    (or ring) cache at a scalar or per-row (B,) offset (the dense engines'
+    decode step); S > 1 tokens per row against a dense cache at per-row
+    offsets (a verify block: written first, then each query attends at
+    its own position); S tokens per row against the paged pool when
+    ``cache`` is one (with (B,) or (B, S) flat write slots and a page
+    table).
 
     Returns (out, cache)."""
     B, S, _ = x.shape
@@ -250,6 +302,13 @@ def gqa_attention(params, cfg: ModelConfig, x, positions, segments, *,
         out = decode_attention(q[:, 0], cache["k"], cache["v"],
                                cache["pos"], positions[:, 0],
                                window=cfg.sliding_window)[:, None]
+    elif cache is not None and _is_verify(S, cache_offset):
+        # dense verify block: write, then the contiguous verify kernel,
+        # every query masked by its own position
+        _dense_decode_write(cfg, (k, v), positions, segments, cache,
+                            cache_offset)
+        out = verify_attention(q, cache["k"], cache["v"], cache["pos"],
+                               positions, window=cfg.sliding_window)
     else:
         _dense_prefill(cfg, (k, v), positions, segments, cache,
                        cache_offset)
@@ -313,13 +372,19 @@ def _paged_mla_decode(params, cfg: ModelConfig, q_nope, q_rope, ckv, kr,
 
 def _dense_mla_decode(params, cfg: ModelConfig, q_nope, q_rope, ckv, kr,
                       positions, segments, cache, cache_offset, scale):
-    """Absorbed MLA decode of one token per row against a dense (or ring)
-    latent cache: write its (ckv, kr) row, then attend in the latent space
-    through the contiguous MLA wrapper (JAX: chunked_attention over the
-    cache read). Returns o_lat (B, 1, H, r)."""
+    """Absorbed MLA attention of S tokens per row against a dense (or
+    ring) latent cache: write their (ckv, kr) rows, then attend in the
+    latent space through the contiguous MLA wrappers (JAX:
+    chunked_attention over the cache read), one token per row through
+    ``mla_decode_attention``, a verify block through
+    ``mla_verify_attention``. Returns o_lat (B, S, H, r)."""
     _dense_decode_write(cfg, (ckv, kr), positions, segments, cache,
                         cache_offset)
     q_cat = _absorbed_q(params, cfg, q_nope, q_rope)
+    if q_cat.shape[1] > 1:
+        return mla_verify_attention(q_cat, cache["ckv"], cache["kr"],
+                                    cache["pos"], positions, scale=scale,
+                                    window=cfg.sliding_window)
     return mla_decode_attention(q_cat[:, 0], cache["ckv"], cache["kr"],
                                 cache["pos"], positions[:, 0], scale=scale,
                                 window=cfg.sliding_window)[:, None]
@@ -355,9 +420,11 @@ def mla_attention(params, cfg: ModelConfig, x, positions, segments, *,
     block, a radix suffix prefill attending through cached latent pages),
     so the pool stores only ckv + kr per token (the MLA memory win); one
     token per row against a dense (or ring) latent cache: the same
-    absorbed attention through the contiguous MLA wrapper (the Sampler's
-    decode step). Otherwise (no cache, or a dense cache filled from offset
-    0): the expanded path of prefill and training.
+    absorbed attention through the contiguous MLA wrapper (the dense
+    engines' decode step), and S > 1 tokens per row at per-row (B,)
+    offsets (a verify block) through the contiguous MLA verify wrapper.
+    Otherwise (no cache, or a dense cache filled from offset 0): the
+    expanded path of prefill and training.
 
     The softmax scale is (nd + rd)^-0.5 and is passed to the kernels
     explicitly: their default, D^-0.5 with D = r + rd, is not MLA's.
@@ -366,7 +433,8 @@ def mla_attention(params, cfg: ModelConfig, x, positions, segments, *,
     H, vd, r = cfg.num_heads, cfg.v_head_dim, cfg.kv_lora_rank
     q_nope, q_rope, ckv, kr = _mla_qckv(params, cfg, x, positions)
     scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    if cache is not None and (S == 1 or is_paged_cache(cache)):
+    if cache is not None and (S == 1 or is_paged_cache(cache)
+                              or _is_verify(S, cache_offset)):
         if is_paged_cache(cache):
             o_lat, cache = _paged_mla_decode(params, cfg, q_nope, q_rope,
                                              ckv, kr, positions, cache,

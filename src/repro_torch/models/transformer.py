@@ -176,8 +176,11 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                    want_aux: bool = False):
     """Token ids (B, S) -> final hidden states (B, S, d).
 
-    ``caches`` (dense prefill caches or the paged pool, stacked over
-    layers) are written in place. A training forward (autograd recording,
+    ``caches`` (dense caches or the paged pool, stacked over layers) are
+    written in place, every layer at ``cache_offset``: an int for a
+    dense prefill (0) or a lock-step decode step, a (B,) tensor of
+    per-row start offsets for the slot engines' decode and verify blocks
+    on a dense cache, flat slot indices on the paged pool. A training forward (autograd recording,
     no caches) checkpoints each layer when ``cfg.remat``, as
     ``jax.checkpoint`` does in the JAX package: the backward recomputes the
     layer's forward instead of keeping its activations. MoE layers size
@@ -229,13 +232,41 @@ def init_caches(cfg: ModelConfig, batch: int, length: int, *, device,
     Sampler's); ``ring=False`` gives ``length`` slots whatever the window
     (the paged engine's prompt prefill: every prompt token's K/V is
     spliced into the pool; the window mask still applies in attention).
-    ``ring_slack`` widens the ring for a multi-token verify block (the
-    spec plane, not ported to a dense cache: 0 here), as in JAX."""
+    ``ring_slack`` widens the ring beyond the window, as in JAX: a verify
+    block writes up to k speculative tokens past the committed frontier,
+    and on a ring of exactly the window those writes would evict entries
+    the block's earlier queries still see; the dense spec engines pass
+    k + 1, so every in-window entry stays resident for the whole block
+    (the window mask itself is position-driven and unchanged)."""
     kv_len = (min(length, cfg.sliding_window + ring_slack)
               if cfg.sliding_window and ring else length)
     one = DenseCacheBackend(cfg, kv_len).init(
         batch, dtype_of(cfg.compute_dtype), device)
     return _stacked(cfg, one)
+
+
+def prefill_slot(params: dict, cfg: ModelConfig, caches: dict, slot: int,
+                 tokens: torch.Tensor, length: int, max_ctx: int, *,
+                 ring: bool = True, ring_slack: int = 0) -> torch.Tensor:
+    """Prefill one right-padded prompt row (``tokens`` (1, Lp), its first
+    ``length`` real) into a one-row cache of ``max_ctx`` (``init_caches``'
+    ``ring`` and ``ring_slack``) and splice the whole row into row
+    ``slot`` of the dense pool ``caches``: its unwritten slots clear the
+    previous occupant's entries. Returns the last prompt token's hidden
+    state (d_model,)."""
+    ar = torch.arange(tokens.shape[1], dtype=torch.int32,
+                      device=tokens.device)[None]
+    real = ar < length
+    row = init_caches(cfg, 1, max_ctx, device=tokens.device, ring=ring,
+                      ring_slack=ring_slack)
+    h, row = forward_hidden(params, cfg, tokens,
+                            positions=torch.where(real, ar, 0),
+                            segments=torch.where(real, 0, -1),
+                            caches=row, cache_offset=0)
+    pool, one = caches["layers"]["kv"], row["layers"]["kv"]
+    for name in pool:
+        pool[name][:, slot] = one[name][:, 0]
+    return h[0, length - 1]
 
 
 def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int, *,

@@ -31,7 +31,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import require_engine_support
 from repro_torch.data.tokenizer import Tokenizer
-from repro_torch.device import engine_stream, to_device
+from repro_torch.device import engine_stream, on_engine_stream, to_device
 from repro_torch.models import forward_hidden, init_caches
 from repro_torch.models.layers import lm_head_weight
 
@@ -142,11 +142,6 @@ def _sample_token_rows(logits: torch.Tensor, seeds: Optional[torch.Tensor],
     return torch.argmax(logits + noise, dim=-1)
 
 
-def _tree_leaves(tree: dict):
-    for v in tree.values():
-        yield from (_tree_leaves(v) if isinstance(v, dict) else (v,))
-
-
 class Sampler:
     """The group-at-a-time rollout engine (the port of the JAX
     ``Sampler``): ``generate`` turns B prompts, left-padded to
@@ -216,19 +211,9 @@ class Sampler:
         toks, lens = self.pad_prompts(prompts)
         seeds = np.asarray([row_seed(key, b) for b in range(len(prompts))],
                            np.int64)
-        if self.stream is None:
-            return self._generate(params, toks, lens, seeds)
-        caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)   # the weights were written there
-        with torch.cuda.stream(self.stream):
-            out = self._generate(params, toks, lens, seeds)
-        for leaf in _tree_leaves(params):
-            leaf.record_stream(self.stream)
-        caller.wait_stream(self.stream)
-        for t in out:
-            if t is not None:
-                t.record_stream(caller)
-        return out
+        return on_engine_stream(
+            self.stream, params,
+            lambda: self._generate(params, toks, lens, seeds))
 
     # -- device core ---------------------------------------------------------
     def _generate(self, params, toks, lens, seeds) -> RolloutBatch:

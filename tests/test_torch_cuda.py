@@ -1700,3 +1700,228 @@ def test_flip_during_generate_survives_trainer_allocations(dev):
             for _ in range(2)]
     del junk
     assert torch.equal(out.response_ids.cpu(), want)
+
+
+# ---------------------------------------------------------------------
+# the dense-cache slot and spec engines: per-row writes, the contiguous
+# verify routes on a model path
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contiguous_verify_kernel_on_a_rotated_ring(dev, dtype):
+    """verify_attention over a sliding-window ring of window + k + 1 slots
+    (window 512, k 4: the dense spec engines' ring slack): S 5 queries a
+    row at consecutive positions, slots out of position order, two rows
+    wrapped, one not yet full, 10 % of slots INVALID and one pad query at
+    2^30, against its plain version; one launch counted as
+    verify_attention."""
+    rng = np.random.RandomState(6)
+    W, S, H, Hkv, D = 512, 5, 24, 8, 128
+    B, L = 3, W + S
+    last = np.array([1900, 600, 300], np.int32)
+    kv_pos = _ring_positions(rng, B, L, last, 0.1)
+    q_pos = (last[:, None] - S + 1 + np.arange(S)[None]).astype(np.int32)
+    q_pos[2, -1] = 2 ** 30
+    dt = getattr(torch, dtype)
+    k, v = (torch.from_numpy(rng.randn(B, L, Hkv, D).astype(np.float32))
+            .to(dev, dt) for _ in range(2))
+    q = torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32)).to(dev,
+                                                                     dt)
+    kp, qp = torch.from_numpy(kv_pos).to(dev), torch.from_numpy(q_pos).to(dev)
+    got = _launch_twice("verify_attention", verify_attention, q, k, v, kp,
+                        qp, window=W)
+    torch.testing.assert_close(got.float(), verify_attention_plain(
+        *_f32(q, k, v), kp, qp, window=W), **TOL[dtype])
+
+
+def _slot_latent(rng, lens, L, S, r, rd):
+    """A slot engine's contiguous latent cache at a verify step: row b
+    holds positions 0..lens[b] + S - 2 from slot 0 (slot index ==
+    position), stale speculative entries past them, INVALID after; its S
+    queries sit at the frontier's positions."""
+    B = len(lens)
+    i = np.arange(L)[None]
+    n = np.asarray(lens)[:, None] + S - 1
+    kv_pos = np.where(i < n + 3, i, 2 ** 30).astype(np.int32)
+    q_pos = (n - S + np.arange(S)[None]).astype(np.int32)
+    ckv = rng.randn(B, L, r).astype(np.float32)
+    kr = rng.randn(B, L, rd).astype(np.float32)
+    return ckv, kr, kv_pos, q_pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,r,rd,L,lens,window", [
+    (16, 512, 64, 1061, (64, 1030, 500, 201), None),   # phase 21 (a)
+    (16, 512, 64, 1061, (64, 1030, 500, 201), 256),
+    (4, 64, 16, 53, (5, 40, 17), None),                  # reduced
+])
+def test_contiguous_mla_verify_wrapper_matches_plain(dev, dtype, H, r, rd, L,
+                                                     lens, window):
+    """mla_verify_attention (S 5) over a contiguous latent cache viewed
+    as B pages of length L, against its plain version; one launch counted
+    as mla_verify_attention, its plan covering every key."""
+    from repro_torch.kernels.decode_attention import (
+        LAST_PLAN, mla_verify_attention, mla_verify_attention_plain)
+    rng = np.random.RandomState(8)
+    S = 5
+    ckv, kr, kv_pos, q_pos = _slot_latent(rng, lens, L, S, r, rd)
+    dt = getattr(torch, dtype)
+    ckv, kr = (torch.from_numpy(a).to(dev, dt) for a in (ckv, kr))
+    q = torch.from_numpy(rng.randn(len(lens), S, H, r + rd).astype(
+        np.float32)).to(dev, dt)
+    kp, qp = torch.from_numpy(kv_pos).to(dev), torch.from_numpy(q_pos).to(dev)
+    scale = 192 ** -0.5
+    got = _launch_twice("mla_verify_attention", mla_verify_attention, q, ckv,
+                        kr, kp, qp, scale=scale, window=window)
+    plan = LAST_PLAN["mla_verify_attention"]
+    assert plan["splits"] * plan["keys_per_split"] >= L
+    torch.testing.assert_close(got.float(), mla_verify_attention_plain(
+        *_f32(q, ckv, kr), kp, qp, scale=scale, window=window), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("S", [1, 5])
+def test_per_row_write_on_card_equals_cpu(dev, dtype, ring, S):
+    """DenseCacheBackend.write_decode at per-row (B,) offsets, six writes
+    of S tokens a row (pads among them), plain and on a ring of window +
+    S slots: the card's cache is the CPU's, bitwise."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.attention import DenseCacheBackend, cache_streams
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    if ring:
+        cfg = dataclasses.replace(cfg, sliding_window=8)
+    L = 8 + S if ring else 24
+    B, rng = 3, np.random.RandomState(S)
+    be = DenseCacheBackend(cfg, L)
+    dt = getattr(torch, dtype)
+    states = [be.init(B, dt, where) for where in (dev, "cpu")]
+    for _ in range(6):
+        vals = [rng.randn(B, S, *shp).astype(np.float32)
+                for _, shp in cache_streams(cfg)]
+        off = rng.randint(0, 3 * L if ring else L - S + 1, size=(B,))
+        pos = (off[:, None] + np.arange(S)[None]).astype(np.int32)
+        seg = np.where(rng.rand(B, S) < 0.3, -1, 0).astype(np.int32)
+        for st, where in zip(states, (dev, "cpu")):
+            be.write_decode(st, tuple(torch.from_numpy(v).to(where, dt)
+                                      for v in vals),
+                            torch.from_numpy(pos).to(where),
+                            torch.from_numpy(seg).to(where),
+                            torch.from_numpy(off).to(where))
+    for name in states[1]:
+        assert torch.equal(states[0][name].cpu(), states[1][name])
+
+
+def _slot_cfg(arch):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_config
+    if arch == "mla_dense":
+        return _reduced_mla_dense()
+    if arch == "deepseek_moe":
+        return reduced_config(get_config("deepseek-v2-lite-16b"))
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    return dataclasses.replace(cfg, sliding_window=8) \
+        if arch == "llama_window8" else cfg
+
+
+def _slot_run(cfg, where, params, draft_params, mode, prompts):
+    """One greedy run of a slot or spec engine on ``where``: tokens by
+    request (and lengths), with the engine."""
+    from repro_torch.core.cbatch import ContinuousBatchingSampler
+    from repro_torch.core.paged import PagedGroupEngine
+    from repro_torch.spec.sampler import SpecSampler
+    Lp, T = 40, 10
+    if mode in ("spec_sampler", "spec_sampler_model"):
+        kw = dict(draft="model", draft_params=draft_params) \
+            if mode.endswith("model") else {}
+        out = SpecSampler(cfg, Lp, T, spec_k=2, temperature=0.0,
+                          device=where, **kw).generate(params, prompts, 3)
+        ids, lens = out.response_ids.tolist(), out.response_len.tolist()
+        return {b: ids[b][: lens[b]] for b in range(len(prompts))}
+    if mode == "paged_model":
+        eng = PagedGroupEngine(cfg, num_slots=2, page_size=8, num_pages=0,
+                               max_prompt_len=Lp, max_new_tokens=T,
+                               group_size=1, temperature=0.0, spec_k=2,
+                               spec_draft="model", device=where)
+        eng._draft.params = draft_params
+        done = eng.serve(params, prompts, 3)
+    else:
+        kw = {"d1": {}, "d3": dict(drain_interval=3),
+              "spec2": dict(spec_k=2)}[mode]
+        eng = ContinuousBatchingSampler(
+            cfg, num_slots=2, max_prompt_len=Lp, max_new_tokens=T,
+            temperature=0.0, device=where, **kw)
+        done = eng.run(params, prompts, 3, max_new_per_request=[10, 4, 9, 7])
+    return {c.request_id: c.response_ids.tolist() for c in done}
+
+
+@pytest.mark.parametrize("mode", ["d1", "d3", "spec2", "spec_sampler",
+                                  "spec_sampler_model", "paged_model"])
+@pytest.mark.parametrize("arch", ["llama", "llama_window8", "mla_dense",
+                                  "deepseek_moe"])
+def test_slot_engines_on_card_match_cpu(dev, arch, mode):
+    """The reduced f32 slot engine (D 1, D 3, spec k 2), the SpecSampler
+    (prompt lookup and the draft model) and the paged engine with the
+    draft model, greedy: the card's tokens are the CPU's, on the same
+    weights and the same draft weights."""
+    from repro_torch.models import init
+    from repro_torch.spec.draft import draft_config
+    cfg = _slot_cfg(arch)
+    p_cpu = init(cfg, seed=0, device="cpu")
+    d_cpu = init(draft_config(cfg), seed=5, device="cpu")
+    prompts = _sampler_prompts()
+    got = _slot_run(cfg, dev, _to_dev(p_cpu, dev), _to_dev(d_cpu, dev),
+                    mode, prompts)
+    torch.cuda.synchronize()
+    want = _slot_run(cfg, "cpu", p_cpu, d_cpu, mode, prompts)
+    assert got == want
+
+
+def test_no_slot_engine_kernel_runs_off_the_engine_stream(dev):
+    """torch.profiler over the slot engine at D 3 and with spec and the
+    draft model, and the SpecSampler: every SPA forward and every
+    contiguous decode / verify kernel runs on one stream (the engine's);
+    a decode call queued on the default stream beside them (a marker)
+    runs on another."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.cbatch import ContinuousBatchingSampler
+    from repro_torch.models import init
+    from repro_torch.spec.draft import draft_config
+    from repro_torch.spec.sampler import SpecSampler
+    cfg, _, p_gpu = _reduced_llama(dev)
+    d_gpu = _to_dev(init(draft_config(cfg), seed=5, device="cpu"), dev)
+    prompts = _sampler_prompts()
+    rng = np.random.RandomState(1)
+    q = torch.from_numpy(rng.randn(2, 4, 64).astype(np.float32)).to(dev)
+    kv = torch.from_numpy(rng.randn(2, 16, 2, 64).astype(np.float32)).to(dev)
+    kp = torch.arange(16, dtype=torch.int32, device=dev).expand(2, 16)
+    kp = kp.contiguous()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ContinuousBatchingSampler(
+            cfg, num_slots=2, max_prompt_len=40, max_new_tokens=8,
+            temperature=0.0, drain_interval=3, device=dev).run(
+            p_gpu, prompts, 0)
+        eng = ContinuousBatchingSampler(
+            cfg, num_slots=2, max_prompt_len=40, max_new_tokens=8,
+            temperature=0.0, spec_k=2, spec_draft="model", device=dev)
+        eng._draft.params = d_gpu
+        eng.run(p_gpu, prompts, 0)
+        SpecSampler(cfg, 40, 8, spec_k=2, temperature=0.0,
+                    device=dev).generate(p_gpu, prompts, 0)
+        decode_attention(q, kv, kv, kp, torch.full((2,), 15, dtype=torch.int32,
+                                                   device=dev))
+        torch.cuda.synchronize()
+    count = collections.defaultdict(collections.Counter)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for kind in ("splitl_kernel", "spa_fwd"):
+            if kind in e.name():
+                count[e.device_resource_id()][kind] += 1
+    assert len(count) == 2
+    marker = min(count, key=lambda s: count[s]["splitl_kernel"])
+    assert count[marker] == collections.Counter(splitl_kernel=1)
+    engine = max(count, key=lambda s: count[s]["splitl_kernel"])
+    assert count[engine]["splitl_kernel"] > 0 and count[engine]["spa_fwd"] > 0

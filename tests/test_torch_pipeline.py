@@ -322,17 +322,22 @@ def test_group_engine_is_built(cfg):
 
 
 def test_group_engine_refusals(cfg):
-    """SSM stays refused on the group engine, spec decode and the radix
-    cache ride the paged engine only, and the off-policy baseline stays
-    refused on the paged engine (it needs quiescence at a flip)."""
+    """SSM stays refused on the group engine (with spec decode too), the
+    radix cache rides the paged engine only, and the off-policy baseline
+    stays refused on the paged engine (it needs quiescence at a flip).
+    Spec decode on the group engine builds the SpecSampler."""
     import dataclasses
+    from repro_torch.spec.sampler import SpecSampler
     ssm = dataclasses.replace(cfg, family="ssm", ssm_state_size=16)
     with pytest.raises(ValueError, match="not ported"):
         build_pipeline(ssm, _rl("async", rollout_engine="group"),
                        device="cpu")
-    with pytest.raises(ValueError, match="SpecSampler"):
-        build_pipeline(cfg, _rl("async", rollout_engine="group",
+    with pytest.raises(ValueError, match="not ported"):
+        build_pipeline(ssm, _rl("async", rollout_engine="group",
                                 spec_decode=True), device="cpu")
+    _, parts = build_pipeline(cfg, _rl("async", rollout_engine="group",
+                                       spec_decode=True), device="cpu")
+    assert isinstance(parts["sampler"], SpecSampler)
     with pytest.raises(ValueError, match="paged pool"):
         build_pipeline(cfg, _rl("async", rollout_engine="group",
                                 prefix_cache=True), device="cpu")

@@ -173,8 +173,10 @@ def test_dense_cache_writes_match_jax(family, S):
 
 def test_dense_cache_refuses_what_jax_would_clamp():
     """A non-ring cache refuses a prefill longer than itself and a write
-    past its end (JAX's dynamic_update_slice would clamp the write), and
-    a per-row offset (the slot engines' form, not ported)."""
+    past its end at a scalar offset (JAX's dynamic_update_slice would
+    clamp the write) and an offset that is neither an int nor a (B,)
+    tensor; a per-row (B,) offset, the slot engines' form, writes row b
+    at its own slot."""
     _, cfg = _pair("llama")
     be = DenseCacheBackend(cfg, 4)
     st = be.init(1, torch.float32, "cpu")
@@ -186,7 +188,15 @@ def test_dense_cache_refuses_what_jax_would_clamp():
         be.write_decode(st, (kv[:, :1], kv[:, :1]), ids[:, :1], ids[:, :1], 4)
     with pytest.raises(TypeError, match="scalar"):
         be.write_decode(st, (kv[:, :1], kv[:, :1]), ids[:, :1], ids[:, :1],
-                        torch.zeros(1, dtype=torch.int64))
+                        1.0)
+    with pytest.raises(TypeError, match=r"\(B,\)"):
+        be.write_decode(st, (kv[:, :1], kv[:, :1]), ids[:, :1], ids[:, :1],
+                        torch.zeros((1, 1), dtype=torch.int64))
+    one = torch.ones(1, 1, cfg.num_kv_heads, cfg.head_dim)
+    be.write_decode(st, (one, one), ids[:, :1] + 7, ids[:, :1],
+                    torch.full((1,), 3, dtype=torch.int64))
+    assert st["pos"].tolist() == [[INVALID_POS] * 3 + [7]]
+    assert torch.equal(st["k"][0, 3], one[0, 0])
 
 
 @pytest.mark.parametrize("family", ["llama", "window", "deepseek_moe"])
@@ -243,19 +253,29 @@ def test_sampled_rows_equal_the_paged_engine(setups, family):
 
 
 def test_group_engine_support_matrix():
-    """The group engine takes GQA and MLA, dense or MoE, with or without
-    a window; SSM/hybrid, enc-dec and VLM wait; spec decode and the radix
-    cache ride the paged engine only."""
+    """The group engine (and the slot engine, ``cbatch``) takes GQA and
+    MLA, dense or MoE, with or without a window; SSM/hybrid, enc-dec and
+    VLM wait; spec decode rides every engine (the SpecSampler on the
+    group engine), the radix cache the paged engine only."""
     for name in FAMILIES:
-        assert engine_support(_pair(name)[1], "group")[0]
+        for engine in ("group", "cbatch"):
+            assert engine_support(_pair(name)[1], engine)[0]
+            assert engine_support(_pair(name)[1], "spec",
+                                  rollout_engine=engine)[0]
     _, cfg = _pair("llama")
     for bad in (dict(family="ssm", ssm_state_size=16), dict(hybrid=True),
                 dict(is_encoder_decoder=True), dict(vision_prefix_len=4)):
-        ok, reason = engine_support(dataclasses.replace(cfg, **bad), "group")
-        assert not ok and "not ported" in reason
+        for engine in ("group", "cbatch"):
+            ok, reason = engine_support(dataclasses.replace(cfg, **bad),
+                                        engine)
+            assert not ok and "not ported" in reason
+            assert not engine_support(dataclasses.replace(cfg, **bad),
+                                      "spec", rollout_engine=engine)[0]
     ok, reason = engine_support(cfg, "spec", rollout_engine="group")
-    assert not ok and "SpecSampler" in reason
-    assert not engine_support(cfg, "prefix", rollout_engine="group")[0]
+    assert ok and "past the frontier" in reason
+    assert "contiguous cache" in engine_support(cfg, "cbatch")[1]
+    for engine in ("group", "cbatch"):
+        assert not engine_support(cfg, "prefix", rollout_engine=engine)[0]
     assert engine_support(cfg, "spec")[0]
 
 

@@ -236,11 +236,18 @@ def test_prompt_lookup_draft_equal_to_jax():
 
 
 def test_model_draft_is_refused():
-    with pytest.raises(ValueError, match="draft model"):
-        make_draft_provider("model", 2)
+    """``"model"`` builds the resident draft model (half the target's
+    depth, its own weights); an unknown kind is still refused."""
+    from repro_torch.spec import ModelDraft
+    cfg = reduced_config(get_config("llama3.2-3b"))
+    kw = dict(spec_k=2, max_prompt_len=8, max_new_tokens=4, device="cpu")
+    draft = make_draft_provider("model", cfg, 2, **kw)
+    assert isinstance(draft, ModelDraft)
+    assert draft.cfg.num_layers == cfg.num_layers // 2
+    assert draft.L == 8 + 4 + 2 + 2
     with pytest.raises(KeyError, match="unknown draft"):
-        make_draft_provider("oracle", 2)
-    assert isinstance(make_draft_provider("prompt_lookup", 2),
+        make_draft_provider("oracle", cfg, 2, **kw)
+    assert isinstance(make_draft_provider("prompt_lookup", cfg, 2, **kw),
                       PromptLookupDraft)
 
 
